@@ -26,8 +26,27 @@
    gradient.
 6. Profiles 3 more steps with torch.profiler: the device time per step
    by kind of kernel, the top kernels and the device's idle share.
+7. Reloads the seeded weights and, at full resolution (1x3x1024x2048,
+   nseg 2048), holds K5 against its plain version, bitwise, on the
+   softmax planes of an eval forward with ~30% of superpixels selected,
+   and on signed values rounded to 1/8 (negative values and ties); times
+   both.
+8. Evaluation: Evaluator.run with predignore on 4 synthetic 1024x2048
+   uint8 images (img/s, finite mIoU).
+9. Pseudo-labelling, the recipe's cosprop_includeonehot step with
+   cfg.dtype bfloat16 (so bf16 features and similarities):
+   PseudoLabelGenerator.generate on tools_dev/bench_round.py's fixture
+   (two base superpixel maps, 30% selected, 1-3 classes per superpixel),
+   1 warm-up image and 8 timed ones, with every launch counter set to 0
+   just before the 8 and read just after (K5 once per image, no other
+   kernel); each PNG must decode to the map the generator computes. Then
+   a profiled pass over the same 8 gives ms per image for each part and
+   the device's idle share.
+10. cosine_prototype_plbl on the card against the CPU at 96x80, nseg 24,
+   sim_bf16 off: K5's outputs equal, the maps agree on >= 99.5% of pixels
+   (the matmuls sum in another order, so near-ties may flip).
 
-Prints, before the last line, the slice's numbers and one JSON line with
+Prints, before the last line, the slices' numbers and one JSON line with
 each kernel's check and times; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero; there is no CPU fallback.
@@ -37,9 +56,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -49,6 +70,7 @@ import torch
 HERE = Path(__file__).resolve().parent
 
 B, NUM_CLASSES, H, W, NSEG = 4, 20, 768, 768, 2048
+PH, PW, PLBL_IMAGES, EVAL_IMAGES = 1024, 2048, 8, 4  # plbl/eval resolution
 WARMUP, TIMED, WINDOW = 3, 20, 5
 TIMING_RUNS, REPEATS = 20, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
@@ -63,7 +85,12 @@ KERNELS = {
                 "mulactseg_tpu/ops/segment_pallas.py:560"),
     "ssm_bwd": ("K4", "mulactseg_tpu_torch/csrc/segment.cu",
                 "mulactseg_tpu/ops/segment_pallas.py:641"),
+    "seg_max_fwd": ("K5", "mulactseg_tpu_torch/csrc/segment_max.cu",
+                    "mulactseg_tpu/ops/segment_pallas.py:295"),
 }
+STAGE1_KERNELS = ("pixel_ce_fwd", "pixel_ce_bwd", "ssm_fwd", "ssm_bwd")
+PLBL_PARTS = ("plbl.forward", "plbl.softmax", "plbl.k5", "plbl.pass1",
+              "plbl.threshold", "plbl.pass2", "plbl.fetch", "plbl.save")
 
 
 def check(cond, msg):
@@ -302,12 +329,35 @@ def small_reference_check(dev):
           f"small lossdecomp gradient differs by {err}")
 
 
+def device_spans(prof):
+    """(kernel spans sorted by start, busy us, window us) of a profile:
+    busy is the union of the spans (one stream), the window runs from the
+    first span's start to the last one's end. Device-side spans of
+    record_function ranges enclose kernels already counted and are left
+    out."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.time_range.end > e.time_range.start)
+    check(spans, "the profiler saw no device activity")
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e, _ in spans:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return spans, busy, spans[-1][1] - spans[0][0]
+
+
 def profile_steps(step, batches, n=3, top=25):
     """torch.profiler over n train steps: device time by kernel name, the
     kernels' share by kind, and the device's idle share between the first
     kernel's start and the last one's end (one stream, so busy time is the
     union of kernel intervals)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -316,24 +366,10 @@ def profile_steps(step, batches, n=3, top=25):
         for i in range(n):
             step(batches[i % len(batches)])
         torch.cuda.synchronize()
-    # device-side spans of record_function ranges (the optimizer step's)
-    # enclose kernels already counted: leave them out
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and e.time_range.end > e.time_range.start)
-    check(spans, "the profiler saw no device activity")
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    spans, busy, window = device_spans(prof)
     by_name = {}
     for s, e, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
     kinds = {"loss kernels (K1-K4)": ("pixel_ce", "ssm_"),
              "convolutions and matmuls": ("conv", "gemm", "xmma", "cutlass",
                                           "cudnn", "wgrad", "dgrad", "sm90"),
@@ -355,6 +391,228 @@ def profile_steps(step, batches, n=3, top=25):
             by_kind.items(), key=lambda kv: -kv[1])}}}))
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {t / n / 1e3:9.3f} ms/step  {name[:110]}")
+
+
+def plbl_fixture(n, seed):
+    """tools_dev/bench_round.py:135-157's pseudo-label fixture at
+    1024x2048 in the port's layout: two base superpixel maps, 30% of
+    superpixels selected, 1-3 candidate classes per superpixel (of C+1),
+    uint8 NCHW images and GT; the first 600 superpixel ids count as
+    labelled (suppix)."""
+    from mulactseg_tpu_torch.data.synthetic import irregular_superpixels
+
+    rng = np.random.RandomState(seed)
+    base = [irregular_superpixels(PH, PW, NSEG, rng) for _ in range(2)]
+    batches, suppix = [], {}
+    for i in range(n):
+        spx = base[i % 2]
+        sel = np.nonzero(rng.rand(NSEG) < 0.3)[0]
+        tgt = (rng.rand(NSEG, NUM_CLASSES) < 0.1).astype(np.float32)
+        tgt[np.arange(NSEG), rng.randint(0, NUM_CLASSES, NSEG)] = 1.0
+        batches.append({
+            "images": rng.randint(0, 256, (1, 3, PH, PW)).astype(np.uint8),
+            "labels": rng.randint(0, NUM_CLASSES - 1,
+                                  (1, PH, PW)).astype(np.uint8),
+            "target": tgt[None], "spx": spx[None],
+            "spmask": np.isin(spx, sel)[None],
+            "fnames": [["img", f"lbl_{i}.png", f"spx_{i}"]]})
+        suppix[f"spx_{i}"] = np.unique(spx).tolist()[:600]
+    return batches, suppix
+
+
+def k5_checks(model, dev):
+    """K5 against its plain version at the pseudo-labeller's shapes:
+    the softmax planes of a full-resolution eval forward with ~30% of
+    superpixels selected, then signed values rounded to 1/8. Both outputs
+    must be bitwise equal. Returns the kernels-line row."""
+    from mulactseg_tpu_torch.data.synthetic import irregular_superpixels
+    from mulactseg_tpu_torch.engine.evaluate import eval_forward
+    from mulactseg_tpu_torch.ops import segment_max
+
+    rng = np.random.RandomState(11)
+    C, P = NUM_CLASSES, PH * PW
+    image = rng.randint(0, 256, (1, 3, PH, PW)).astype(np.uint8)
+    logits = eval_forward(model, image, dev, True)
+    planes = torch.softmax(logits[0].float(), dim=0).reshape(C, P).t()
+    del logits
+    spx = irregular_superpixels(PH, PW, NSEG, rng)
+    sel = rng.rand(NSEG) < 0.3
+    sid = torch.from_numpy(np.where(sel[spx], spx, NSEG).reshape(-1).astype(
+        np.int32)).to(dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    signed = torch.round(torch.randn(P, C, device=dev, generator=gen) * 8) / 8
+    err = 0.0
+    for name, values in (("softmax planes", planes), ("signed/8", signed)):
+        vals, pix = segment_max.seg_max_fwd(values, sid, NSEG)
+        pvals, ppix = segment_max.segment_max_plain(values, sid, NSEG)
+        torch.cuda.synchronize()
+        check(torch.equal(pix, ppix), f"K5 argmax pixels differ ({name})")
+        check(torch.equal(vals.view(torch.int32), pvals.view(torch.int32)),
+              f"K5 max values differ bitwise ({name})")
+        check(bool((pix < P).any()) and bool((pix == P).any()),
+              f"K5 case {name} lacks present or absent segments")
+        err = max(err, (vals - pvals).abs().max().item())
+    del signed
+    n_valid = int((sid < NSEG).sum())
+    print(f"K5 bitwise equal to its plain version on both inputs; "
+          f"{n_valid} of {P} pixels valid", flush=True)
+    return ("seg_max_fwd", err,
+            time_ms(lambda: segment_max.seg_max_fwd(planes, sid, NSEG),
+                    graph=True),
+            time_ms(lambda: segment_max.segment_max_plain(planes, sid, NSEG)),
+            bound(P * 4 + n_valid * C * 4 + NSEG * C * 8, n_valid * C),
+            None)
+
+
+def eval_slice(model, cfg, dev):
+    """Evaluator.run with predignore on EVAL_IMAGES uint8 1024x2048 images
+    (1 warm-up image first)."""
+    from mulactseg_tpu_torch.engine.evaluate import Evaluator
+
+    rng = np.random.RandomState(12)
+    batches = []
+    for _ in range(EVAL_IMAGES):
+        labels = rng.randint(0, NUM_CLASSES - 1, (1, PH, PW)).astype(np.uint8)
+        labels[rng.rand(1, PH, PW) < 0.1] = 255
+        batches.append({"images": rng.randint(0, 256, (1, 3, PH, PW)).astype(
+            np.uint8), "labels": labels})
+    ev = Evaluator(model, cfg, device=dev)
+    ev.run(None, batches[:1], predignore=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    miou, table = ev.run(None, batches, predignore=True)
+    dt = time.perf_counter() - t0
+    check(math.isfinite(miou) and len(table.split(",")) == NUM_CLASSES + 1,
+          f"bad eval result {miou} {table}")
+    return {"slice": "evaluation, predignore, 1024x2048", "images":
+            EVAL_IMAGES, "img_per_s": EVAL_IMAGES / dt,
+            "ms_per_image": dt / EVAL_IMAGES * 1e3, "miou": miou}
+
+
+def plbl_slice(model, cfg, dev):
+    """The recipe's pseudo-labelling step on the fixture: the main path's
+    run (counted), the PNG check, and a profiled pass for the breakdown."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mulactseg_tpu_torch.ops import _build
+    from mulactseg_tpu_torch.plbl.generator import PseudoLabelGenerator
+    from mulactseg_tpu_torch.utils.png import read_gray8
+
+    batches, suppix = plbl_fixture(PLBL_IMAGES + 1, seed=3)
+    warm, timed = batches[:1], batches[1:]
+    gen = PseudoLabelGenerator(model, cfg, "cosprop_includeonehot",
+                               device=dev)
+    check(gen.sim_bf16, "the recipe's plbl runs with bf16 similarities")
+    with tempfile.TemporaryDirectory() as tmp:
+        gen.generate(None, warm, save_dir=os.path.join(tmp, "warm"),
+                     suppix=suppix)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        miou, iou, prec, rec = gen.generate(
+            None, timed, save_dir=os.path.join(tmp, "run"), suppix=suppix)
+        dt = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(launches == {"seg_max_fwd": PLBL_IMAGES},
+              f"plbl launches {launches}, want seg_max_fwd once per image")
+        check(math.isfinite(miou) and all(
+            math.isfinite(float(v)) for t in (iou, prec, rec)
+            for v in t.split(",")), f"bad plbl scores {miou} {iou}")
+        labelled = []
+        for b in timed:
+            path = os.path.join(tmp, "run", b["fnames"][0][1])
+            check(os.path.exists(path), f"missing {path}")
+            want = gen.plbl_for_batch(b, suppix).to(torch.uint8).cpu().numpy()
+            check(np.array_equal(read_gray8(path), want),
+                  f"{path} does not decode to the generator's map")
+            labelled.append(float((want != 255).mean()))
+
+        host_prep_s = []
+        for b in timed:
+            t1 = time.perf_counter()
+            gen.host_prep(b, suppix)
+            host_prep_s.append(time.perf_counter() - t1)
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            gen.generate(None, timed, save_dir=os.path.join(tmp, "prof"),
+                         suppix=suppix)
+            torch.cuda.synchronize()
+    _, busy, window = device_spans(prof)
+    parts = {}
+    for name in PLBL_PARTS:
+        dev_us = [e.time_range.end - e.time_range.start for e in prof.events()
+                  if e.name == name and e.device_type == DeviceType.CUDA]
+        host_us = [e.time_range.end - e.time_range.start
+                   for e in prof.events()
+                   if e.name == name and e.device_type == DeviceType.CPU]
+        parts[name] = {
+            "device_ms": (sum(dev_us) / PLBL_IMAGES / 1e3 if dev_us
+                          else None),
+            "host_ms": sum(host_us) / PLBL_IMAGES / 1e3 if host_us else None}
+    return {"slice": "plbl cosprop_includeonehot, 1024x2048, nseg 2048, "
+            "bf16 features", "images": PLBL_IMAGES,
+            "img_per_s": PLBL_IMAGES / dt,
+            "ms_per_image": dt / PLBL_IMAGES * 1e3, "peak_mem_gib": peak_gib,
+            "miou": miou, "labelled_share": statistics.mean(labelled),
+            "host_prep_ms": statistics.mean(host_prep_s) * 1e3,
+            "parts_per_image": parts,
+            "profiled_window_ms_per_image": window / PLBL_IMAGES / 1e3,
+            "profiled_device_busy_ms_per_image": busy / PLBL_IMAGES / 1e3,
+            "profiled_idle_share": 1.0 - busy / window}, launches
+
+
+def small_plbl_check(dev):
+    """cosine_prototype_plbl on the card against the CPU on one small
+    input with sim_bf16 off: K5's outputs equal, and the maps agree on
+    >= 99.5% of pixels (the similarity matmuls sum in another order)."""
+    from mulactseg_tpu_torch.data.synthetic import irregular_superpixels
+    from mulactseg_tpu_torch.ops.segment_max import seg_max_fwd
+    from mulactseg_tpu_torch.plbl.cosine_prop import (
+        cosine_prototype_plbl,
+        selected_spx_adjacency,
+    )
+
+    rng = np.random.RandomState(13)
+    h, w, nseg, C, Ch = 96, 80, 24, NUM_CLASSES, 256
+    P = h * w
+    spx = irregular_superpixels(h, w, nseg, rng)
+    feats = rng.randn(Ch, P).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=0, keepdims=True)
+    logits = rng.randn(C, P).astype(np.float32) * 3
+    probs = np.exp(logits - logits.max(0))
+    probs = (probs / probs.sum(0)).astype(np.float32)
+    targets = np.zeros((nseg, C), np.float32)
+    for s in range(nseg):
+        targets[s, rng.choice(C, rng.randint(1, 4), replace=False)] = 1
+    selected = np.nonzero(rng.rand(nseg) < 0.6)[0].tolist()
+    proto = selected_spx_adjacency(spx, selected, nseg, targets, 256, True)
+    valid = np.isin(spx, selected).reshape(-1)
+    sid = np.where(valid, spx.reshape(-1), nseg).astype(np.int32)
+    out = {}
+    for d in ("cpu", dev):
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(d)
+
+        k5 = seg_max_fwd(t(probs).t(), t(sid), nseg)
+        m = cosine_prototype_plbl(
+            t(feats).t(), t(probs).t(), t(spx.reshape(-1)), t(valid),
+            *(t(a) for a in proto), nseg=nseg, chunk=2048)
+        out[str(d)] = (k5[0].cpu(), k5[1].cpu(), m.cpu())
+    (cv, ci, cm), (gv, gi, gm) = out["cpu"], out[str(dev)]
+    check(torch.equal(ci, gi) and torch.equal(cv, gv),
+          "small plbl: K5 on the card differs from the CPU")
+    differ = int((cm != gm).sum())
+    print(f"small plbl: {differ} of {P} pixels differ between card and CPU",
+          flush=True)
+    check(differ <= 0.005 * P and bool((gm != 255).any()),
+          f"small plbl: {differ} of {P} pixels differ")
+    return differ
 
 
 def main():
@@ -380,7 +638,7 @@ def main():
     print(f"card: {card}", flush=True)
 
     t0 = time.perf_counter()
-    reports = _build.build_all(["pixel_loss", "segment"])
+    reports = _build.build_all(["pixel_loss", "segment", "segment_max"])
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.1f} s (parallel nvcc, sm_90a)", flush=True)
     for name, log in reports.items():
@@ -394,7 +652,8 @@ def main():
     t0 = time.perf_counter()
     model = get_model(cfg.model, cfg.num_model_classes, cfg.output_stride,
                       separable_conv=cfg.separable_conv, device=dev)
-    convert.load_variables(model, convert.random_variables(model, seed=0))
+    variables = convert.random_variables(model, seed=0)
+    convert.load_variables(model, variables)
     batches = make_batches(2, seed=0)
     print(f"model {cfg.model} ({sum(p.numel() for p in model.parameters())}"
           f" params) and batches: {time.perf_counter() - t0:.1f} s",
@@ -433,16 +692,32 @@ def main():
     launches = dict(_build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = WARMUP + TIMED
-    for name in KERNELS:
-        check(launches.get(name, 0) == steps,
-              f"{name} launched {launches.get(name, 0)} times in {steps} "
-              "steps")
+    check(set(launches) == set(STAGE1_KERNELS),
+          f"stage-1 launches {launches}, want {STAGE1_KERNELS}")
+    for name in STAGE1_KERNELS:
+        check(launches[name] == steps,
+              f"{name} launched {launches[name]} times in {steps} steps")
     losses = {k: float(v) for k, v in aux.items()}
     check(all(math.isfinite(v) for v in losses.values()),
           f"non-finite loss {losses}")
 
     small_reference_check(dev)
     profile_steps(step, batches)
+    stage1_launches = launches
+
+    # evaluation and pseudo-labelling at 1024x2048, from the seeded weights
+    # again (BN in eval mode reads the running statistics)
+    del step
+    torch.cuda.empty_cache()
+    convert.load_variables(model, variables)
+    rows.append(k5_checks(model, dev))
+    pcfg = Config(num_classes=NUM_CLASSES - 1, nseg=NSEG, dtype="bfloat16",
+                  method=cfg.method)
+    eval_stats = eval_slice(model, pcfg, dev)
+    print(json.dumps(eval_stats), flush=True)
+    plbl_stats, plbl_launches = plbl_slice(model, pcfg, dev)
+    small_plbl_check(dev)
+    launches = {**stage1_launches, **plbl_launches}
 
     print(json.dumps({
         "slice": "cityscapes stage-1 train step", "card": smi,
@@ -453,6 +728,7 @@ def main():
         "ce_loss": losses["ce_loss"], "mc_loss": losses["mc_loss"],
         "group_loss": losses["group_loss"],
         "train_loss": losses["train_loss"]}))
+    print(json.dumps(plbl_stats))
     kernels = []
     for name, err, ms, plain_ms, (bound_ms, bound_by), lib_ms in rows:
         tag, source, replaces = KERNELS[name]

@@ -1,11 +1,22 @@
-"""Synthetic superpixel maps (the port's copy of
-mulactseg_tpu/data/synthetic.py:154 irregular_superpixels)."""
+"""Synthetic superpixel maps (the port's copies of
+mulactseg_tpu/data/synthetic.py:29 grid_superpixels and :154
+irregular_superpixels)."""
 
 from __future__ import annotations
 
 import math
 
 import numpy as np
+
+
+def grid_superpixels(H: int, W: int, nseg: int) -> np.ndarray:
+    """Regular-grid superpixels: ids 0..nseg-1 tiling the image."""
+    g = int(math.floor(math.sqrt(nseg)))
+    gy = g
+    gx = nseg // g
+    ys = np.minimum((np.arange(H) * gy // H), gy - 1)
+    xs = np.minimum((np.arange(W) * gx // W), gx - 1)
+    return (ys[:, None] * gx + xs[None, :]).astype(np.int32)
 
 
 def irregular_superpixels(H: int, W: int, nseg: int,

@@ -119,11 +119,18 @@ class DeepLabV3(nn.Module):
         self.backbone = backbone
         self.classifier = classifier
 
-    def forward(self, x, return_feat: bool = False):
+    def forward(self, x, return_feat: bool = False, feat_bf16: bool = False):
+        """feat_bf16 (with return_feat): the features are cast to bfloat16
+        at head resolution, before the upsample, and come back bfloat16
+        (the pseudo-labeller's hand-off when the network runs in bfloat16,
+        JAX deeplab.py:221-228)."""
         size = x.shape[-2:]
         feats = self.backbone(x)
         if return_feat:
             feat, logits = self.classifier(feats, return_feat=True)
-            return (resize_bilinear(feat, size).float(),
-                    resize_bilinear(logits, size).float())
+            if feat_bf16:
+                feat = resize_bilinear(feat.to(torch.bfloat16), size)
+            else:
+                feat = resize_bilinear(feat, size).float()
+            return feat, resize_bilinear(logits, size).float()
         return resize_bilinear(self.classifier(feats), size).float()

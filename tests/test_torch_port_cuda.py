@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions on
+"""The port's CUDA kernels (K1-K5) against their plain PyTorch versions on
 the card, at small and ragged shapes the recipe run does not reach (HW not
 a multiple of the block, C from 3 to 31, underflow, absent segments).
 
@@ -15,7 +15,9 @@ max within 1e-6 (the kernel multiplies by 1/z where the plain version
 divides, so probabilities one ulp apart may order differently). K4 is fed
 random cotangents, so dl = (dlm - w p) / T can cancel far below its
 operands: its error is held to 8 float32 ulps (8 * 2**-23) of the largest
-operand (|dlm| + |w| p) / T.
+operand (|dlm| + |w| p) / T. K5 (segment max of arbitrary values) is
+exact: both outputs equal the plain version's (-0.0 counts as +0.0 on
+both sides).
 """
 
 import numpy as np
@@ -27,7 +29,7 @@ from mulactseg_tpu_torch.losses.fused import (
     lossdecomp_fused,
     pixel_target_bits,
 )
-from mulactseg_tpu_torch.ops import _build, pixel_loss, segment
+from mulactseg_tpu_torch.ops import _build, pixel_loss, segment, segment_max
 
 pytestmark = pytest.mark.cuda
 
@@ -145,3 +147,34 @@ def test_lossdecomp_on_card_matches_cpu(dev):
         assert ref[k] > 0
         assert got[k] == pytest.approx(ref[k], rel=1e-5), k
     assert (ggot - gref).abs().max() <= 1e-5 * gref.abs().max()
+
+
+@pytest.mark.parametrize("P,C,signed", [(33 * 31, 20, False),
+                                        (4096 + 17, 7, True)])
+@pytest.mark.parametrize("planes", [False, True])
+def test_segment_max_kernel_matches_plain(dev, P, C, signed, planes):
+    rng = np.random.RandomState(P + C)
+    S = 11
+    if signed:
+        # signed values rounded to 1/8: negative values and exact ties,
+        # with -0.0 and +0.0 mixed in
+        v = np.round(rng.randn(P, C) * 8) / 8
+        v[rng.rand(P, C) < 0.1] = -0.0
+    else:
+        v = rng.rand(P, C)
+    v = v.astype(np.float32)
+    sid = np.repeat(rng.randint(0, S + 2, -(-P // 13)), 13)[:P]
+    sid[sid == 3] = S  # segment 3 is absent; ids > S are invalid too
+    v[sid == 5] = 0.0  # a present segment of 0.0 values
+    sid = torch.from_numpy(sid.astype(np.int32)).to(dev)
+    values = torch.from_numpy(v).to(dev)
+    if planes:
+        values = values.t().contiguous().t()
+    _build.reset_launches()
+    vals, pix = segment_max.seg_max_fwd(values, sid, S)
+    pvals, ppix = segment_max.segment_max_plain(values, sid, S)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"seg_max_fwd": 1}
+    assert torch.equal(pix, ppix) and torch.equal(vals, pvals)
+    assert (pix[3] == P).all() and (vals[3] == 0).all()
+    assert (pix[5] < P).all() and (vals[5] == 0).all()

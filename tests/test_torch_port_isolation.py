@@ -15,9 +15,11 @@ import torch
 import mulactseg_tpu_torch
 from mulactseg_tpu_torch.config import Config
 from mulactseg_tpu_torch.device import resolve_device
+from mulactseg_tpu_torch.engine.evaluate import Evaluator
 from mulactseg_tpu_torch.engine.train import make_train_step
 from mulactseg_tpu_torch.models.factory import get_model
-from mulactseg_tpu_torch.ops import _build, pixel_loss, segment
+from mulactseg_tpu_torch.ops import _build, pixel_loss, segment, segment_max
+from mulactseg_tpu_torch.plbl.generator import PseudoLabelGenerator
 
 torch.set_num_threads(1)
 
@@ -79,8 +81,22 @@ def test_entry_points_raise_without_cuda(no_card):
     cfg = Config(method="active_joint_multi_predignore_lossdecomp")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_train_step(model, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Evaluator(model, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PseudoLabelGenerator(model, cfg)
     assert resolve_device("cpu") == torch.device("cpu")
     assert callable(make_train_step(model, cfg, device="cpu"))
+    assert Evaluator(model, cfg, device="cpu").dev.type == "cpu"
+    assert PseudoLabelGenerator(model, cfg, device="cpu").dev.type == "cpu"
+
+
+def test_port_path_imports_no_pil():
+    """The pseudo-label PNGs are written by utils/png.py: no module of the
+    port imports Pillow (the machine with the card is not promised it)."""
+    bad = [(str(p.relative_to(ROOT)), m) for p in SOURCES
+           for m in _imports(p) if m == "PIL" or m.startswith("PIL.")]
+    assert not bad, bad
 
 
 def test_non_cpu_tensors_take_the_kernel_path(monkeypatch):
@@ -95,10 +111,14 @@ def test_non_cpu_tensors_take_the_kernel_path(monkeypatch):
     g2 = torch.empty(2, device="meta")
     vals = torch.empty(8, 20, device="meta")
     pix = torch.empty(8, 20, dtype=torch.int32, device="meta")
+    planes = torch.empty(20, 128, device="meta").t()
+    sid = torch.empty(128, dtype=torch.int32, device="meta")
     calls = [lambda: pixel_loss.pixel_ce_fwd(x, bits, 0.1),
              lambda: pixel_loss.pixel_ce_bwd(x, bits, g2, 0.1),
              lambda: segment.ssm_fwd(x, bits, 8, 0.1),
-             lambda: segment.ssm_bwd(x, vals, pix, vals, 0.1)]
+             lambda: segment.ssm_bwd(x, vals, pix, vals, 0.1),
+             lambda: segment_max.seg_max_fwd(planes, sid, 8),
+             lambda: segment_max.segment_max_grad(planes, sid, 8)]
     for call in calls:
         with pytest.raises(RuntimeError, match="kernel library"):
             call()
@@ -106,7 +126,12 @@ def test_non_cpu_tensors_take_the_kernel_path(monkeypatch):
         pixel_loss.pixel_ce_fwd(x.double(), bits, 0.1)
     with pytest.raises(ValueError):
         segment.ssm_fwd(x, bits[:, :, :32], 8, 0.1)
+    with pytest.raises(TypeError):
+        segment_max.seg_max_fwd(planes, sid.long(), 8)
+    with pytest.raises(ValueError):
+        segment_max.seg_max_fwd(planes, sid[:64], 8)
     assert not _build.LAUNCHES.get("pixel_ce_fwd")
+    assert not _build.LAUNCHES.get("seg_max_fwd")
 
 
 def test_launch_counters_start_at_zero_and_reset():
