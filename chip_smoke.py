@@ -10,30 +10,49 @@
    stride 16) and carries a seeded numpy init into it through
    models/convert.py; makes synthetic batches the way bench.py does
    (irregular superpixels, multi-hot 15%, selection 50%, uint8 images,
-   batch 4, 768x768, nseg 2048).
+   batch 4, 768x768), at nseg 2048 and at nseg 4096.
 3. Holds each kernel (K1-K4) against its plain PyTorch version on the card
-   at those shapes, on logits from a forward pass of the model, and times
-   both with CUDA events (windows of 5 back-to-back calls, the kernels as
-   CUDA graph replays, median of 20 windows); K4 is also timed beside the
-   library's softmax backward.
-4. Drives the main path: make_train_step for 3 warm-up and 20 timed steps
-   (4 windows of 5 steps, each timed to a synchronise at its end), with
-   every launch counter set to 0 just before and read just after;
-   each kernel must have launched exactly once per step, and the loss and
+   at those shapes (nseg 2048), on logits from a forward pass of the model,
+   and times both with CUDA events (windows of 5 back-to-back calls, the
+   kernels as CUDA graph replays, median of 20 windows); K4 is also timed
+   beside the library's softmax backward.
+4. The same for the kernels past the reference's K3 guard
+   (num_segments + 1 > 9216, mulactseg_tpu/ops/segment.py:653-654): K6
+   with the nseg-4096 batch (S = 16,384); then, on the logits as
+   (2,359,296, 20) rows, K7 and K8 (the row-major group term, rows divided
+   by T) and K9 and K10 (the row-major pixel loss). K6 and K8 write
+   bf16-rounded values: bf16-exact, within one bf16 ulp of the plain
+   version's and equal for > 99.9% of them, and a choice that differs
+   from the plain version's must reach the block max within 1e-6. Behind
+   each, K5 on the card's planes is held bitwise against its plain
+   version, the op's output must be exactly K5's winners mapped back to
+   pixels, and against the all-plain chain its maxima lie within one bf16
+   ulp and its argmax pixels are equal or near-ties.
+5. Drives the main path: make_train_step at nseg 2048 for 3 warm-up and 20
+   timed steps (4 windows of 5 steps, each timed to a synchronise at its
+   end), with every launch counter set to 0 just before and read just
+   after; K1-K4 must have launched exactly once per step, and the loss and
    its three parts must be finite.
-5. Holds lossdecomp_fused on the card (the kernels) against the CPU (the
-   plain versions) on a small input: loss, its parts and the logits
-   gradient.
-6. Profiles 3 more steps with torch.profiler: the device time per step
-   by kind of kernel, the top kernels and the device's idle share.
-7. Reloads the seeded weights and, at full resolution (1x3x1024x2048,
+6. The same at nseg 4096 from the seeded weights again: 2 warm-up and 10
+   timed steps; K1, K2, K6, K5 and K4 once per step, K3 never.
+7. One autograd pass through each row-major op on those rows, counted:
+   segment_softmax_max launches K7, with prereduce=True K8 and K5, and
+   pixel_partial_ce K9 and K10, once each; each loss equals its plain
+   versions' (rtol 1e-5).
+8. Holds lossdecomp_fused on the card (the kernels) against the CPU (the
+   plain versions) on small inputs, loss, its parts and the logits
+   gradient: at 96x80, nseg 24 (K3), and at 192x192, nseg 4608 (S + 1 =
+   9217, so K6 and K5; about 8 pixels per segment). Every gradient entry
+   must lie within 1e-5 of the largest, except in a segment holding a K6
+   value that rounds to bf16 the other way on the card.
+9. Reloads the seeded weights and, at full resolution (1x3x1024x2048,
    nseg 2048), holds K5 against its plain version, bitwise, on the
    softmax planes of an eval forward with ~30% of superpixels selected,
    and on signed values rounded to 1/8 (negative values and ties); times
    both.
-8. Evaluation: Evaluator.run with predignore on 4 synthetic 1024x2048
+10. Evaluation: Evaluator.run with predignore on 4 synthetic 1024x2048
    uint8 images (img/s, finite mIoU).
-9. Pseudo-labelling, the recipe's cosprop_includeonehot step with
+11. Pseudo-labelling, the recipe's cosprop_includeonehot step with
    cfg.dtype bfloat16 (so bf16 features and similarities):
    PseudoLabelGenerator.generate on tools_dev/bench_round.py's fixture
    (two base superpixel maps, 30% selected, 1-3 classes per superpixel),
@@ -42,12 +61,16 @@
    kernel); each PNG must decode to the map the generator computes. Then
    a profiled pass over the same 8 gives ms per image for each part and
    the device's idle share.
-10. cosine_prototype_plbl on the card against the CPU at 96x80, nseg 24,
+12. cosine_prototype_plbl on the card against the CPU at 96x80, nseg 24,
    sim_bf16 off: K5's outputs equal, the maps agree on >= 99.5% of pixels
    (the matmuls sum in another order, so near-ties may flip).
+13. Profiles 1 + 3 stage-1 steps at each nseg with torch.profiler: the
+   device time per step by kind of kernel, the top kernels and the
+   device's idle share. Every timed run comes before these passes.
 
 Prints, before the last line, the slices' numbers and one JSON line with
-each kernel's check and times; the last line is
+each kernel's check and times, its launches on each main path
+(launches_by_path) and their sum (launches); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero; there is no CPU fallback.
 """
@@ -62,6 +85,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -70,6 +94,7 @@ import torch
 HERE = Path(__file__).resolve().parent
 
 B, NUM_CLASSES, H, W, NSEG = 4, 20, 768, 768, 2048
+NSEG_LARGE, WARMUP_LARGE, TIMED_LARGE = 4096, 2, 10  # past the K3 guard
 PH, PW, PLBL_IMAGES, EVAL_IMAGES = 1024, 2048, 8, 4  # plbl/eval resolution
 WARMUP, TIMED, WINDOW = 3, 20, 5
 TIMING_RUNS, REPEATS = 20, 5
@@ -87,8 +112,23 @@ KERNELS = {
                 "mulactseg_tpu/ops/segment_pallas.py:641"),
     "seg_max_fwd": ("K5", "mulactseg_tpu_torch/csrc/segment_max.cu",
                     "mulactseg_tpu/ops/segment_pallas.py:295"),
+    "prereduce_nchw": ("K6", "mulactseg_tpu_torch/csrc/prereduce.cu",
+                       "mulactseg_tpu/ops/segment_pallas.py:665"),
+    "ssm_rows_fwd": ("K7", "mulactseg_tpu_torch/csrc/segment.cu",
+                     "mulactseg_tpu/ops/segment_pallas.py:230"),
+    "prereduce_rows": ("K8", "mulactseg_tpu_torch/csrc/prereduce.cu",
+                       "mulactseg_tpu/ops/segment_pallas.py:351"),
+    "pixel_ce_rows_fwd": ("K9", "mulactseg_tpu_torch/csrc/pixel_loss.cu",
+                          "mulactseg_tpu/ops/pixel_loss_pallas.py:94"),
+    "pixel_ce_rows_bwd": ("K10", "mulactseg_tpu_torch/csrc/pixel_loss.cu",
+                          "mulactseg_tpu/ops/pixel_loss_pallas.py:130"),
 }
 STAGE1_KERNELS = ("pixel_ce_fwd", "pixel_ce_bwd", "ssm_fwd", "ssm_bwd")
+STAGE1_LARGE_KERNELS = ("pixel_ce_fwd", "pixel_ce_bwd", "prereduce_nchw",
+                        "seg_max_fwd", "ssm_bwd")
+ROW_OP_KERNELS = ("ssm_rows_fwd", "prereduce_rows", "seg_max_fwd",
+                  "pixel_ce_rows_fwd", "pixel_ce_rows_bwd")
+BF16_ULP = 2.0 ** -7  # of the larger value; + 1e-38 for subnormals
 PLBL_PARTS = ("plbl.forward", "plbl.softmax", "plbl.k5", "plbl.pass1",
               "plbl.threshold", "plbl.pass2", "plbl.fetch", "plbl.save")
 
@@ -137,18 +177,20 @@ def bound(nbytes, nops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def make_batches(n, seed):
-    """bench.py's synthetic stage-1 batches, as numpy arrays."""
+def make_batches(n, seed, nseg=None):
+    """bench.py's synthetic stage-1 batches, as numpy arrays (nseg NSEG
+    unless given)."""
     from mulactseg_tpu_torch.data.synthetic import irregular_superpixels
     from mulactseg_tpu_torch.losses.fused import pixel_target_bits
 
+    nseg = nseg or NSEG
     rng = np.random.RandomState(seed)
     out = []
     for _ in range(n):
-        target = (rng.rand(B, NSEG, NUM_CLASSES) < 0.15).astype(np.float32)
-        spx = np.stack([irregular_superpixels(H, W, NSEG, rng)
+        target = (rng.rand(B, nseg, NUM_CLASSES) < 0.15).astype(np.float32)
+        spx = np.stack([irregular_superpixels(H, W, nseg, rng)
                         for _ in range(B)]).astype(np.int32)
-        sel = rng.rand(B, NSEG) < 0.5
+        sel = rng.rand(B, nseg) < 0.5
         spmask = np.take_along_axis(sel, spx.reshape(B, H * W),
                                     axis=1).reshape(B, H, W)
         bits = np.stack([pixel_target_bits(target[b], spx[b], spmask[b])
@@ -159,12 +201,26 @@ def make_batches(n, seed):
     return out
 
 
+def stage1_ids(batch, dev, nseg):
+    """(bits3, candidate counts, sid3) of lossdecomp_fused's group term."""
+    from mulactseg_tpu_torch.losses.fused import _popcount
+
+    HW, P = H * W, B * H * W
+    bits3 = torch.as_tensor(batch["target_bits"]).to(dev).reshape(
+        B, 1, HW).contiguous()
+    spx = torch.as_tensor(batch["spx"]).to(dev).reshape(P).long()
+    n_cand = _popcount(bits3.reshape(P).long() & ((1 << NUM_CLASSES) - 1))
+    off = torch.arange(B, device=dev).repeat_interleave(HW) * nseg
+    sid3 = torch.where(n_cand > 1, spx + off, B * nseg).int().reshape(
+        B, 1, HW)
+    return bits3, n_cand, sid3
+
+
 def kernel_checks(logits, batch, dev):
     """K1-K4 against their plain versions at the main path's shapes.
     Returns one row per kernel: (name, max abs err, ms, plain ms,
     (bound ms, bound by), library ms or None)."""
     from mulactseg_tpu_torch.ops import pixel_loss, segment
-    from mulactseg_tpu_torch.losses.fused import _popcount
 
     HW = H * W
     P = B * HW
@@ -172,13 +228,8 @@ def kernel_checks(logits, batch, dev):
     C = NUM_CLASSES
     temp = 0.1
     xc = logits.reshape(B, C, HW).contiguous()
-    bits3 = torch.as_tensor(batch["target_bits"]).to(dev).reshape(
-        B, 1, HW).contiguous()
-    spx = torch.as_tensor(batch["spx"]).to(dev).reshape(P).long()
+    bits3, n_cand, sid3 = stage1_ids(batch, dev, NSEG)
     target = torch.as_tensor(batch["target"]).to(dev)
-    n_cand = _popcount(bits3.reshape(P).long() & ((1 << C) - 1))
-    off = torch.arange(B, device=dev).repeat_interleave(HW) * NSEG
-    sid3 = torch.where(n_cand > 1, spx + off, S).int().reshape(B, 1, HW)
     # bytes each kernel must move: its inputs once, its outputs once, and
     # the logits only of the pixels this data needs (a pixel without
     # candidates, or outside the group term, needs none of them)
@@ -293,16 +344,331 @@ def kernel_checks(logits, batch, dev):
     return rows
 
 
-def small_reference_check(dev):
-    """lossdecomp_fused on the card against the CPU on one small input."""
+def check_prereduce(got, want, probs, sid, nimg, hw, what):
+    """K6 or K8 against its plain version: values bf16-exact, within one
+    bf16 ulp of the plain ones (the exps may differ by a float32 ulp, which
+    can move a value across a rounding boundary) and equal for more than
+    99.9% of them; retired ids equal; and each choice that differs from the
+    plain one picks a pixel of its leader's segment whose float32
+    probability (probs, (C, P)) is within 1e-6 of the plain pick's.
+    Returns (max abs error of the values, number of differing values,
+    number of differing choices)."""
+    from mulactseg_tpu_torch.ops.segment import _round_bf16
+
+    (planes, choice, sid2), (pplanes, pchoice, psid2) = got, want
+    check(torch.equal(planes, _round_bf16(planes)),
+          f"{what} values are not rounded to bf16")
+    err = (planes - pplanes).abs()
+    tol = BF16_ULP * torch.maximum(planes.abs(), pplanes.abs()) + 1e-38
+    check(bool((err <= tol).all()),
+          f"{what} values differ by more than one bf16 ulp")
+    n_vals = int((planes != pplanes).sum())
+    check(n_vals < 1e-3 * planes.numel(),
+          f"{what}: {n_vals} of {planes.numel()} values differ")
+    check(torch.equal(sid2, psid2), f"{what} retired ids differ")
+    C, NB = choice.shape
+    nb = NB // nimg
+    blk = torch.arange(NB, device=choice.device)
+    lead = (blk // nb) * hw + (blk % nb) * 4
+    check(bool(((blk % nb) * 4 + choice < hw).all()),
+          f"{what} choice past its image")
+    differ = choice != pchoice
+    q = (lead + choice.long())[differ]
+    pq = (lead + pchoice.long())[differ]
+    cls = torch.arange(C, device=choice.device)[:, None].expand(C, NB)[differ]
+    check(bool((sid[q] == sid[lead.expand(C, NB)[differ]]).all()),
+          f"{what} choice outside its leader's segment")
+    gap = (probs[cls, q] - probs[cls, pq]).abs()
+    gap = gap.max().item() if gap.numel() else 0.0
+    check(gap <= 1e-6, f"{what} choice off the block max by {gap}")
+    return err.max().item(), n_vals, int(differ.sum())
+
+
+def check_prereduced_term(got, want, term, probs, sid, nimg, hw, counts,
+                          what):
+    """The pre-reduced group term behind K6 or K8 (got, want: the kernel's
+    and the plain version's (planes, choices, retired ids); term: the
+    (values, pixels) the op returned on the card; counts: the numbers of
+    values and choices in which got and want differ).
+    1. K5 on the card's planes and retired ids is bitwise equal to its
+       plain version, and the op's output is exactly K5's winners mapped
+       back through the card's choices: K5 and the map back are exact.
+    2. Against the plain chain (prereduce_plain, segment_max_plain, map
+       back): absent sets equal, maxima within one bf16 ulp, and each
+       argmax pixel equal, or a pixel of the same segment whose float32
+       probability is within one bf16 ulp of the plain pick's (a value that
+       rounded the other way can move the first maximum among bf16 ties).
+    Returns the number of maxima and pixels that differ from the plain
+    chain."""
+    from mulactseg_tpu_torch.ops.segment import _pixel_of_row
+    from mulactseg_tpu_torch.ops.segment_max import (
+        seg_max_fwd,
+        segment_max_plain,
+    )
+
+    (planes, choice, sid2), (pplanes, pchoice, psid2) = got, want
+    vals, pix = term
+    S, C = vals.shape
+    P = nimg * hw
+    kv, krow = seg_max_fwd(planes.t(), sid2, S)
+    pv, prow = segment_max_plain(planes.t(), sid2, S)
+    torch.cuda.synchronize()
+    check(torch.equal(krow, prow) and torch.equal(kv.view(torch.int32),
+                                                  pv.view(torch.int32)),
+          f"K5 behind {what} differs from its plain version")
+    check(torch.equal(vals.view(torch.int32), kv.view(torch.int32))
+          and torch.equal(pix, _pixel_of_row(krow, choice, nimg, hw)),
+          f"the group term behind {what} is not K5's winners mapped back")
+    wv, wrow = segment_max_plain(pplanes.t(), psid2, S)
+    wpix = _pixel_of_row(wrow, pchoice, nimg, hw)
+    absent = pix == P
+    check(torch.equal(absent, wpix == P) and bool(absent.any())
+          and bool((~absent).any()),
+          f"the group term behind {what}: absent sets differ")
+    check(bool(((vals - wv).abs() <= BF16_ULP * torch.maximum(vals, wv)
+                + 1e-38).all()),
+          f"the group term behind {what}: maxima off by more than a bf16 ulp")
+    cls = torch.arange(C, device=pix.device).expand(S, C)
+    q, wq = pix.clamp(max=P - 1).long(), wpix.clamp(max=P - 1).long()
+    pq, pw = probs[cls, q], probs[cls, wq]
+    differ = pix != wpix
+    near = (pq - pw).abs() <= BF16_ULP * torch.maximum(pq, pw) + 1e-38
+    check(bool((near | ~differ).all()),
+          f"the group term behind {what}: an argmax pixel is off the max")
+    seg = torch.arange(S, device=pix.device)[:, None].expand(S, C)
+    check(torch.equal(sid[q[~absent]], seg[~absent]),
+          f"the group term behind {what}: argmax outside its segment")
+    # a maximum can differ only through a differing value, a pixel only
+    # through a differing value or choice, each at most one entry
+    n_vals, n_pix = int((vals != wv).sum()), int(differ.sum())
+    check(n_vals <= counts[0] and n_pix <= counts[0] + counts[1],
+          f"the group term behind {what}: {n_vals} maxima and {n_pix} "
+          f"pixels differ, from {counts} differing values and choices")
+    return n_vals, n_pix
+
+
+def large_kernel_checks(logits, batch, dev):
+    """K6 at the stage-1 shapes with nseg 4096 (S = 16,384), then K7 and K8
+    on the logits as pre-scaled (P, C) rows and K9 and K10 on them as
+    rows, each against its plain version and timed beside it. Returns the
+    kernels-line rows and the row inputs (rows, scaled rows, ids, bits)."""
+    from mulactseg_tpu_torch.ops import pixel_loss, segment
+
+    HW, P, C = H * W, B * H * W, NUM_CLASSES
+    S = B * NSEG_LARGE
+    temp = 0.1
+    xc = logits.reshape(B, C, HW).contiguous()
+    bits3, n_cand, sid3 = stage1_ids(batch, dev, NSEG_LARGE)
+    sid = sid3.reshape(P)
+    n_live = int((n_cand > 0).sum())
+    n_valid = int((n_cand > 1).sum())
+    row_bytes = C * 4
+    # K6 and K8 write dense planes, choices and ids, so they need every
+    # pixel's logits: read logits and ids, write planes, ids and choices
+    def pre_bytes(nblocks):
+        return 2 * P * row_bytes + 2 * P * 4 + nblocks * C * 4
+    rows = []
+
+    # K6, then the pre-reduced group term it feeds (K6, K5, map back)
+    sid2d = sid3.reshape(B, HW)
+    got = segment.prereduce_softmax_nchw(xc, sid3, S, temp)
+    want = segment.prereduce_plain(xc, sid2d, S, temp)
+    probs = segment._softmax(xc, temp).permute(1, 0, 2).reshape(C, P)
+    torch.cuda.synchronize()
+    err, *counts = check_prereduce(got, want, probs, sid, B, HW, "K6")
+    term = check_prereduced_term(
+        got, want, segment._ssm_prereduced(xc, sid3, S, temp), probs, sid,
+        B, HW, counts, "K6")
+    print(f"K6: values within one bf16 ulp of the plain version; "
+          f"{counts[0]} of {want[0].numel()} values and {counts[1]} of "
+          f"{want[1].numel()} choices differ (each a near-tie). K6 -> K5 -> "
+          f"map back: K5 bitwise; against the plain chain {term[0]} maxima "
+          f"and {term[1]} argmax pixels of {S * C} differ (near-ties)",
+          flush=True)
+    del got, want, probs
+    rows.append(("prereduce_nchw", err,
+                 time_ms(lambda: segment.prereduce_softmax_nchw(
+                     xc, sid3, S, temp), graph=True),
+                 time_ms(lambda: segment.prereduce_plain(xc, sid2d, S,
+                                                         temp)),
+                 bound(pre_bytes(B * -(-HW // 4)), 12 * P * C), None))
+
+    # the logits as (P, C) rows, the row-major ops' layout
+    x2d = logits.permute(0, 2, 3, 1).reshape(P, C).contiguous()
+    scaled = x2d / temp
+    bits = bits3.reshape(P)
+
+    # K7
+    vals, pix = segment.ssm_rows_fwd(scaled, sid, S)
+    pvals, ppix = segment.ssm_rows_fwd_plain(scaled, sid, S)
+    torch.cuda.synchronize()
+    absent = pix == P
+    check(torch.equal(absent, ppix == P), "K7 absent sets differ")
+    check(bool((vals[absent] == 0).all()), "K7 absent value is not 0.0")
+    err = (vals - pvals).abs().max().item()
+    check(err <= 1e-6, f"K7 max values differ by {err}")
+    probs = torch.softmax(segment._round_bf16(scaled), dim=1)
+    q = pix[~absent].long()
+    cls = torch.arange(C, device=dev).expand(S, C)[~absent]
+    tie_err = (probs[q, cls] - pvals[~absent]).abs().max().item()
+    check(tie_err <= 1e-6, f"K7 argmax pixel off the max by {tie_err}")
+    check(bool((sid[q] == torch.arange(S, device=dev)[:, None]
+                .expand(S, C)[~absent]).all()), "K7 argmax outside segment")
+    del probs
+    rows.append(("ssm_rows_fwd", err,
+                 time_ms(lambda: segment.ssm_rows_fwd(scaled, sid, S),
+                         graph=True),
+                 time_ms(lambda: segment.ssm_rows_fwd_plain(scaled, sid, S)),
+                 bound(P * 4 + n_valid * row_bytes + S * C * 8,
+                       8 * n_valid * C),
+                 None))
+
+    # K8, then the row op's pre-reduced branch (K8, K5, map back)
+    got = segment.prereduce_softmax_rows(scaled, sid, S)
+    want = segment.prereduce_plain(scaled.t()[None], sid[None], S, 1.0)
+    probs = torch.softmax(scaled, dim=1).t()
+    torch.cuda.synchronize()
+    err, *counts = check_prereduce(got, want, probs, sid, 1, P, "K8")
+    with torch.no_grad():
+        out = segment.segment_softmax_max(scaled, sid, S, prereduce=True)
+    term = check_prereduced_term(got, want, out, probs, sid, 1, P, counts,
+                                 "K8")
+    print(f"K8: values within one bf16 ulp of the plain version; "
+          f"{counts[0]} of {want[0].numel()} values and {counts[1]} of "
+          f"{want[1].numel()} choices differ (each a near-tie). K8 -> K5 -> "
+          f"map back: K5 bitwise; against the plain chain {term[0]} maxima "
+          f"and {term[1]} argmax pixels of {S * C} differ (near-ties)",
+          flush=True)
+    del got, want, probs, out
+    rows.append(("prereduce_rows", err,
+                 time_ms(lambda: segment.prereduce_softmax_rows(
+                     scaled, sid, S), graph=True),
+                 time_ms(lambda: segment.prereduce_plain(
+                     scaled.t()[None], sid[None], S, 1.0)),
+                 bound(pre_bytes(-(-P // 4)), 12 * P * C), None))
+
+    # K9
+    got = pixel_loss.pixel_ce_rows_fwd(x2d, bits, temp)
+    want = pixel_loss.pixel_ce_fwd_plain(x2d.t()[None], bits[None, None],
+                                         temp)
+    torch.cuda.synchronize()
+    check(torch.equal(got[1::2], want[1::2]),
+          f"K9 counts differ: {got.tolist()} vs {want.tolist()}")
+    check(torch.allclose(got[0::2], want[0::2], rtol=1e-5, atol=0),
+          f"K9 sums differ: {got.tolist()} vs {want.tolist()}")
+    rows.append(("pixel_ce_rows_fwd", (got - want).abs().max().item(),
+                 time_ms(lambda: pixel_loss.pixel_ce_rows_fwd(x2d, bits,
+                                                              temp),
+                         graph=True),
+                 time_ms(lambda: pixel_loss.pixel_ce_fwd_plain(
+                     x2d.t()[None], bits[None, None], temp)),
+                 bound(P * 4 + n_live * row_bytes + 16, 8 * n_live * C),
+                 None))
+
+    # K10, with the cotangents the loss gives (coeff / (1 + count))
+    g = torch.stack([16.0 / (1.0 + want[1]), 8.0 / (1.0 + want[3])]
+                    ).float().contiguous()
+    got = pixel_loss.pixel_ce_rows_bwd(x2d, bits, g, temp)
+    want_dl = pixel_loss.pixel_ce_bwd_plain(x2d.t()[None], bits[None, None],
+                                            g, temp)[0].t()
+    torch.cuda.synchronize()
+    err = (got - want_dl).abs().max().item()
+    scale = want_dl.abs().max().item()
+    check(scale > 0 and err <= 1e-6 * scale,
+          f"K10 dl differs: max abs err {err} vs max |dl| {scale}")
+    del got, want_dl
+    rows.append(("pixel_ce_rows_bwd", err,
+                 time_ms(lambda: pixel_loss.pixel_ce_rows_bwd(x2d, bits, g,
+                                                              temp),
+                         graph=True),
+                 time_ms(lambda: pixel_loss.pixel_ce_bwd_plain(
+                     x2d.t()[None], bits[None, None], g, temp)),
+                 bound(P * 4 + n_live * row_bytes + P * row_bytes + 8,
+                       12 * n_live * C),
+                 None))
+    return rows, (x2d, scaled, sid, bits)
+
+
+def row_op_pass(x2d, scaled, sid, bits):
+    """One autograd pass through each row-major op with every counter at 0
+    just before: segment_softmax_max (K7), the same with prereduce=True (K8
+    then K5) and pixel_partial_ce (K9, K10). Each loss must equal the one
+    its plain versions give on the same rows (rtol 1e-5; the pre-reduced
+    values may round a near-tie the other way, which moves a mean over
+    ~10^5 entries far less), and each gradient must be finite and
+    non-zero. Returns the launch counts and the losses."""
+    from mulactseg_tpu_torch.ops import _build, pixel_loss, segment
+    from mulactseg_tpu_torch.ops.segment_max import segment_max_plain
+
+    P, S = x2d.shape[0], B * NSEG_LARGE
+
+    def group_loss(mx, pix):
+        present = pix < P
+        return -(torch.log(mx + 1e-8) * present).sum() / (1.0 + present.sum())
+
+    def ce_loss(sums):
+        return 16.0 * sums[0] / (1.0 + sums[1]) + 8.0 * sums[2] / (
+            1.0 + sums[3])
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = {}
+    for name, prereduce in (("segment_softmax_max", False),
+                            ("segment_softmax_max prereduce", True)):
+        u = scaled.detach().requires_grad_(True)
+        loss = group_loss(*segment.segment_softmax_max(
+            u, sid, S, prereduce=prereduce))
+        loss.backward()
+        out[name] = (loss.detach(), u.grad)
+    x = x2d.detach().requires_grad_(True)
+    loss = ce_loss(pixel_loss.pixel_partial_ce(x, bits, 0.1))
+    loss.backward()
+    out["pixel_partial_ce"] = (loss.detach(), x.grad)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(launches == {k: 1 for k in ROW_OP_KERNELS},
+          f"row-op launches {launches}, want one each of {ROW_OP_KERNELS}")
+
+    planes, choice, sid2 = segment.prereduce_plain(scaled.t()[None],
+                                                   sid[None], S, 1.0)
+    v8, r8 = segment_max_plain(planes.t(), sid2, S)
+    want = {"segment_softmax_max": group_loss(*segment.ssm_rows_fwd_plain(
+                scaled, sid, S)),
+            "segment_softmax_max prereduce": group_loss(v8, r8),
+            "pixel_partial_ce": ce_loss(pixel_loss.pixel_ce_fwd_plain(
+                x2d.t()[None], bits[None, None], 0.1))}
+    losses = {}
+    for name, (loss, grad) in out.items():
+        losses[name] = float(loss)
+        check(math.isclose(losses[name], float(want[name]), rel_tol=1e-5)
+              and losses[name] > 0,
+              f"{name}: loss {losses[name]} vs plain {float(want[name])}")
+        check(bool(torch.isfinite(grad).all()) and grad.abs().max() > 0,
+              f"{name}: bad gradient")
+    return launches, losses
+
+
+def small_reference_check(dev, h=96, w=80, nseg=24):
+    """lossdecomp_fused on the card against the CPU on one small input:
+    loss and parts within rtol 1e-5, every gradient entry within 1e-5 of
+    the largest. Past the K3 guard (2 * nseg + 1 > 9216) the group term is
+    pre-reduced: the card must launch K6 and no K3. A K6 value next to a
+    bf16 rounding boundary may round the other way on the card than on the
+    CPU; that may move the gradient of its own segment only, so an entry
+    outside the tolerance must lie in a segment that holds such a value
+    (with none, every entry must be inside it). Returns (entries outside
+    the tolerance, K6 values that round differently)."""
     from mulactseg_tpu_torch.data.synthetic import irregular_superpixels
     from mulactseg_tpu_torch.losses.fused import (
+        _popcount,
         lossdecomp_fused,
         pixel_target_bits,
     )
+    from mulactseg_tpu_torch.ops import _build, segment
 
     rng = np.random.RandomState(5)
-    b, c, h, w, nseg = 2, NUM_CLASSES, 96, 80, 24
+    b, c = 2, NUM_CLASSES
+    prereduced = b * nseg + 1 > segment.SCATTER_MAX_SEGMENTS
     spx = np.stack([irregular_superpixels(h, w, nseg, rng)
                     for _ in range(b)]).astype(np.int32)
     target = (rng.rand(b, nseg, c) < 0.15).astype(np.float32)
@@ -312,6 +678,7 @@ def small_reference_check(dev):
                      for i in range(b)])
     logits = (rng.randn(b, c, h, w) * 3).astype(np.float32)
     out = {}
+    _build.reset_launches()
     for d in ("cpu", dev):
         x = torch.from_numpy(logits).to(d).requires_grad_(True)
         total, aux = lossdecomp_fused(
@@ -320,13 +687,41 @@ def small_reference_check(dev):
         total.backward()
         out[str(d)] = ({k: float(v.detach()) for k, v in aux.items()},
                        x.grad.cpu())
+    torch.cuda.synchronize()
+    want = STAGE1_LARGE_KERNELS if prereduced else STAGE1_KERNELS
+    check(dict(_build.LAUNCHES) == {k: 1 for k in want},
+          f"small lossdecomp launches {dict(_build.LAUNCHES)}, want {want}")
     (ref, gref), (got, ggot) = out["cpu"], out[str(dev)]
     for k in ref:
         check(math.isclose(ref[k], got[k], rel_tol=1e-5) and ref[k] > 0,
               f"small lossdecomp {k}: card {got[k]} vs cpu {ref[k]}")
-    err = (ggot - gref).abs().max().item()
-    check(err <= 1e-5 * gref.abs().max().item(),
-          f"small lossdecomp gradient differs by {err}")
+    bad = (ggot - gref).abs() > 1e-5 * gref.abs().max()
+    hw, S = h * w, b * nseg
+    may_differ = torch.zeros(b * hw, dtype=torch.bool)
+    flips = 0
+    if prereduced:
+        # the group term's ids as lossdecomp_fused makes them
+        bt = torch.from_numpy(bits).reshape(b * hw).long()
+        sid = torch.where(_popcount(bt & ((1 << c) - 1)) > 1,
+                          torch.from_numpy(spx).reshape(-1).long()
+                          + torch.arange(b).repeat_interleave(hw) * nseg, S)
+        xc = torch.from_numpy(logits).reshape(b, c, hw)
+        sid3 = sid.int().reshape(b, 1, hw)
+        cpu_planes, _, sid2 = segment.prereduce_softmax_nchw(xc, sid3, S,
+                                                             0.1)
+        card_planes = segment.prereduce_softmax_nchw(
+            xc.to(dev), sid3.to(dev), S, 0.1)[0].cpu()
+        flipped = (card_planes != cpu_planes) & (sid2 < S)
+        flips = int(flipped.sum())
+        touched = torch.zeros(S + 1, dtype=torch.bool)
+        touched[sid[flipped.any(dim=0)]] = True
+        may_differ = touched[sid]
+    bad_pix = bad.permute(0, 2, 3, 1).reshape(b * hw, c).any(dim=1)
+    check(not bool((bad_pix & ~may_differ).any()),
+          f"small lossdecomp gradient: {int(bad.sum())} entries differ, "
+          f"{int((bad_pix & ~may_differ).sum())} pixels outside the "
+          f"segments of the {flips} values that round differently")
+    return int(bad.sum()), flips
 
 
 def device_spans(prof):
@@ -353,13 +748,14 @@ def device_spans(prof):
     return spans, busy, spans[-1][1] - spans[0][0]
 
 
-def profile_steps(step, batches, n=3, top=25):
-    """torch.profiler over n train steps: device time by kernel name, the
-    kernels' share by kind, and the device's idle share between the first
-    kernel's start and the last one's end (one stream, so busy time is the
-    union of kernel intervals)."""
+def profile_steps(step, batches, label, n=3, top=25):
+    """torch.profiler over n train steps, after one warm-up step: device time
+    by kernel name, the kernels' share by kind, and the device's idle share
+    between the first kernel's start and the last one's end (one stream, so
+    busy time is the union of kernel intervals)."""
     from torch.profiler import ProfilerActivity, profile
 
+    step(batches[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -370,7 +766,8 @@ def profile_steps(step, batches, n=3, top=25):
     by_name = {}
     for s, e, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
-    kinds = {"loss kernels (K1-K4)": ("pixel_ce", "ssm_"),
+    kinds = {"loss kernels (K1-K10)": ("pixel_ce", "ssm_", "prereduce",
+                                       "seg_max"),
              "convolutions and matmuls": ("conv", "gemm", "xmma", "cutlass",
                                           "cudnn", "wgrad", "dgrad", "sm90"),
              "optimizer": ("multi_tensor", "adam", "Adam"),
@@ -383,7 +780,7 @@ def profile_steps(step, batches, n=3, top=25):
                      if any(key in name for key in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + t
     print(json.dumps({"profile": {
-        "steps": n, "device_spans_per_step": len(spans) / n,
+        "slice": label, "steps": n, "device_spans_per_step": len(spans) / n,
         "window_ms_per_step": window / n / 1e3,
         "device_busy_ms_per_step": busy / n / 1e3,
         "idle_share": 1.0 - busy / window,
@@ -638,7 +1035,8 @@ def main():
     print(f"card: {card}", flush=True)
 
     t0 = time.perf_counter()
-    reports = _build.build_all(["pixel_loss", "segment", "segment_max"])
+    reports = _build.build_all(["pixel_loss", "segment", "segment_max",
+                                "prereduce"])
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.1f} s (parallel nvcc, sm_90a)", flush=True)
     for name, log in reports.items():
@@ -670,6 +1068,9 @@ def main():
           and logits.dtype == torch.float32
           and bool(torch.isfinite(logits).all()), "bad model logits")
     rows = kernel_checks(logits, batches[0], dev)
+    batches_large = make_batches(2, seed=1, nseg=NSEG_LARGE)
+    large_rows, row_inputs = large_kernel_checks(logits, batches_large[0],
+                                                 dev)
     del logits
     torch.cuda.synchronize()
 
@@ -701,13 +1102,54 @@ def main():
     check(all(math.isfinite(v) for v in losses.values()),
           f"non-finite loss {losses}")
 
-    small_reference_check(dev)
-    profile_steps(step, batches)
     stage1_launches = launches
+
+    # past the K3 guard: nseg 4096, from the seeded weights again. Every
+    # timed run comes before the first torch.profiler pass, whose tracing
+    # may stay armed and slow the host for the rest of the process.
+    del step
+    torch.cuda.empty_cache()
+    convert.load_variables(model, variables)
+    lcfg = Config(num_classes=NUM_CLASSES - 1, nseg=NSEG_LARGE,
+                  crop_size=(H, W), train_batch_size=B, dtype="bfloat16",
+                  separable_conv=True, method=cfg.method)
+    lstep = make_train_step(model, lcfg, device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    for i in range(WARMUP_LARGE):
+        aux = lstep(batches_large[i % len(batches_large)])
+    torch.cuda.synchronize()
+    large_window_s = []
+    for _ in range(TIMED_LARGE // WINDOW):
+        ts = time.perf_counter()
+        for i in range(WINDOW):
+            aux = lstep(batches_large[i % len(batches_large)])
+        torch.cuda.synchronize()
+        large_window_s.append(time.perf_counter() - ts)
+    large_launches = dict(_build.LAUNCHES)
+    large_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    large_steps = WARMUP_LARGE + TIMED_LARGE
+    check(large_launches == {k: large_steps for k in STAGE1_LARGE_KERNELS},
+          f"nseg {NSEG_LARGE} launches {large_launches}, want each of "
+          f"{STAGE1_LARGE_KERNELS} once per step and no ssm_fwd (K3)")
+    large_losses = {k: float(v) for k, v in aux.items()}
+    check(all(math.isfinite(v) for v in large_losses.values()),
+          f"non-finite loss at nseg {NSEG_LARGE}: {large_losses}")
+    del lstep
+
+    row_launches, row_losses = row_op_pass(*row_inputs)
+    del row_inputs
+    print(json.dumps({"row_ops": row_losses}), flush=True)
+    small_reference_check(dev)
+    bad, flips = small_reference_check(dev, h=192, w=192, nseg=4608)
+    print(f"small lossdecomp past the guard (192x192, nseg 4608): {flips} "
+          f"K6 values round differently on the card, {bad} gradient entries "
+          "outside 1e-5 (all in their segments)", flush=True)
 
     # evaluation and pseudo-labelling at 1024x2048, from the seeded weights
     # again (BN in eval mode reads the running statistics)
-    del step
     torch.cuda.empty_cache()
     convert.load_variables(model, variables)
     rows.append(k5_checks(model, dev))
@@ -717,7 +1159,18 @@ def main():
     print(json.dumps(eval_stats), flush=True)
     plbl_stats, plbl_launches = plbl_slice(model, pcfg, dev)
     small_plbl_check(dev)
-    launches = {**stage1_launches, **plbl_launches}
+    for c, b in ((cfg, batches), (lcfg, batches_large)):
+        gen = torch.Generator(dev).manual_seed(0)
+        profile_steps(make_train_step(model, c, device=dev, generator=gen), b,
+                      f"stage-1, nseg {c.nseg}")
+    rows += large_rows
+    # each kernel's launches on each main path that runs it, and their sum
+    by_path = {f"stage1_nseg{NSEG}": stage1_launches,
+               f"stage1_nseg{NSEG_LARGE}": large_launches,
+               "plbl": plbl_launches, "row_ops": row_launches}
+    launches = sum((Counter(n) for n in by_path.values()), Counter())
+    check(all(launches[name] > 0 for name in KERNELS),
+          f"a kernel was never launched on a main path: {dict(launches)}")
 
     print(json.dumps({
         "slice": "cityscapes stage-1 train step", "card": smi,
@@ -728,6 +1181,15 @@ def main():
         "ce_loss": losses["ce_loss"], "mc_loss": losses["mc_loss"],
         "group_loss": losses["group_loss"],
         "train_loss": losses["train_loss"]}))
+    large_dt = sum(large_window_s)
+    print(json.dumps({
+        "slice": f"cityscapes stage-1 train step, nseg {NSEG_LARGE} "
+                 "(pre-reduced group term)", "card": smi,
+        "img_per_s": B * TIMED_LARGE / large_dt,
+        "step_ms": large_dt / TIMED_LARGE * 1e3,
+        "window_step_ms": [t / WINDOW * 1e3 for t in large_window_s],
+        "timed_steps": TIMED_LARGE, "steps": large_steps,
+        "peak_mem_gib": large_peak_gib, **large_losses}))
     print(json.dumps(plbl_stats))
     kernels = []
     for name, err, ms, plain_ms, (bound_ms, bound_by), lib_ms in rows:
@@ -735,6 +1197,8 @@ def main():
         kernels.append({
             "name": f"{tag} {name}", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_by_path": {path: n[name] for path, n in by_path.items()
+                                 if n.get(name)},
             "max_abs_err": err, "max_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms})

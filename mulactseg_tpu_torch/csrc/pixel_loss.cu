@@ -1,9 +1,18 @@
 // Per-pixel partial-label CE/MC terms of the stage-1 lossdecomp loss,
-// forward (K1) and backward (K2), over NCHW logits viewed as (B, C, HW).
+// forward (K1) and backward (K2), over NCHW logits viewed as (B, C, HW),
+// and the same over (N, C) rows (K9, K10).
 //
 // Replaces the TPU kernels of mulactseg_tpu/ops/pixel_loss_pallas.py:
 //   K1  _fwd_pallas_cs / _fwd_kernel_cs  (pallas_call at :257)
 //   K2  _bwd_pallas_cs / _bwd_kernel_cs  (pallas_call at :292)
+//   K9  _fwd_pallas / _fwd_kernel        (pallas_call at :94), the same
+//       forward over (N, C) rows: pixel_ce_rows_fwd
+//   K10 _bwd_pallas / _bwd_kernel        (pallas_call at :130), its
+//       backward: pixel_ce_rows_bwd
+// One template serves both layouts: a pixel's C logits lie HW apart in
+// (B, C, HW) logits and next to each other in (N, C) rows, where a warp's
+// loads for one class are C floats apart and the rest of each row then
+// comes from L1.
 //
 // Semantics (pixel_loss_pallas.py:214-250): per pixel, p = softmax(x / T)
 // over the C classes, t_c = bit c of the candidate bitmask, pos = sum_c p_c
@@ -42,17 +51,18 @@ namespace {
 
 constexpr float kEps = 1e-8f;
 
-// Loads one pixel's C logits (stride HW) and leaves e[c] = exp(x_c/T - m),
-// the reciprocal of their sum and pos = sum over candidates of p_c.
+// Loads one pixel's C logits (class stride cs) and leaves
+// e[c] = exp(x_c/T - m), the reciprocal of their sum and pos = sum over
+// candidates of p_c.
 __device__ __forceinline__ void pixel_softmax(const float* __restrict__ xp,
-                                              int C, int HW, float inv_temp,
+                                              int C, int cs, float inv_temp,
                                               unsigned bits, float (&e)[MAXC],
                                               float& rz, float& pos) {
   float m = -INFINITY;
 #pragma unroll
   for (int c = 0; c < MAXC; ++c) {
     if (c < C) {
-      e[c] = xp[(long long)c * HW] * inv_temp;
+      e[c] = xp[(long long)c * cs] * inv_temp;
       m = fmaxf(m, e[c]);
     }
   }
@@ -69,18 +79,28 @@ __device__ __forceinline__ void pixel_softmax(const float* __restrict__ xp,
   pos = s * rz;
 }
 
+// Offset of pixel hw of image b's first logit, and the class stride: (N, C)
+// rows (kRows) are one image of N pixels.
+template <bool kRows>
+__device__ __forceinline__ long long pixel_base(int b, int hw, int C,
+                                                int HW) {
+  return kRows ? (long long)hw * C : (long long)b * C * HW + hw;
+}
+
+template <bool kRows>
 __global__ void __launch_bounds__(THREADS) pixel_ce_fwd_kernel(
     const float* __restrict__ x, const int* __restrict__ bits,
     float* __restrict__ partials, int C, int HW, float inv_temp) {
   const int hw = blockIdx.x * THREADS + threadIdx.x;
+  const int cs = kRows ? 1 : HW;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   if (hw < HW) {
-    const long long base = (long long)blockIdx.y * C * HW + hw;
+    const long long base = pixel_base<kRows>(blockIdx.y, hw, C, HW);
     const unsigned bt = (unsigned)bits[(long long)blockIdx.y * HW + hw];
     const int n = __popc(bt & ((1u << C) - 1u));
     if (n > 0) {  // a pixel without candidates needs no logits
       float e[MAXC], rz, pos;
-      pixel_softmax(x + base, C, HW, inv_temp, bt, e, rz, pos);
+      pixel_softmax(x + base, C, cs, inv_temp, bt, e, rz, pos);
       const float nll = -logf(pos + kEps);
       if (n == 1) {  // constant indices keep acc in registers
         acc[0] = nll;
@@ -133,24 +153,26 @@ __global__ void __launch_bounds__(THREADS) pixel_ce_finish_kernel(
   if (threadIdx.x < 4) out[threadIdx.x] = (float)red[threadIdx.x][0];
 }
 
+template <bool kRows>
 __global__ void __launch_bounds__(THREADS) pixel_ce_bwd_kernel(
     const float* __restrict__ x, const int* __restrict__ bits,
     const float* __restrict__ g, float* __restrict__ dl, int C, int HW,
     float temp, float inv_temp) {
   const int hw = blockIdx.x * THREADS + threadIdx.x;
   if (hw >= HW) return;
-  const long long base = (long long)blockIdx.y * C * HW + hw;
+  const int cs = kRows ? 1 : HW;
+  const long long base = pixel_base<kRows>(blockIdx.y, hw, C, HW);
   const unsigned bt = (unsigned)bits[(long long)blockIdx.y * HW + hw];
   const int n = __popc(bt & ((1u << C) - 1u));
   if (n == 0) {  // no bucket, no gradient
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
-      if (c < C) dl[base + (long long)c * HW] = 0.f;
+      if (c < C) dl[base + (long long)c * cs] = 0.f;
     }
     return;
   }
   float e[MAXC], rz, pos;
-  pixel_softmax(x + base, C, HW, inv_temp, bt, e, rz, pos);
+  pixel_softmax(x + base, C, cs, inv_temp, bt, e, rz, pos);
   const float scale = n == 1 ? g[0] : g[1];
   const float coef = scale / (temp * (pos + kEps));
 #pragma unroll
@@ -158,20 +180,18 @@ __global__ void __launch_bounds__(THREADS) pixel_ce_bwd_kernel(
     if (c < C) {
       float pc = e[c] * rz;
       float tc = ((bt >> c) & 1u) ? 1.f : 0.f;
-      dl[base + (long long)c * HW] = coef * (pos * pc - pc * tc);
+      dl[base + (long long)c * cs] = coef * (pos * pc - pc * tc);
     }
   }
 }
 
-}  // namespace
-
-extern "C" int pixel_ce_fwd(const float* x, const int* bits, float* partials,
-                            float* out, int B, int C, int HW, float temp,
-                            cudaStream_t stream) {
+template <bool kRows>
+int fwd(const float* x, const int* bits, float* partials, float* out, int B,
+        int C, int HW, float temp, cudaStream_t stream) {
   const int blocks_x = (HW + THREADS - 1) / THREADS;
   dim3 grid(blocks_x, B);
-  pixel_ce_fwd_kernel<<<grid, THREADS, 0, stream>>>(x, bits, partials, C, HW,
-                                                    1.f / temp);
+  pixel_ce_fwd_kernel<kRows><<<grid, THREADS, 0, stream>>>(
+      x, bits, partials, C, HW, 1.f / temp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   pixel_ce_finish_kernel<<<1, THREADS, 0, stream>>>(partials, out,
@@ -179,11 +199,38 @@ extern "C" int pixel_ce_fwd(const float* x, const int* bits, float* partials,
   return (int)cudaGetLastError();
 }
 
+template <bool kRows>
+int bwd(const float* x, const int* bits, const float* g, float* dl, int B,
+        int C, int HW, float temp, cudaStream_t stream) {
+  dim3 grid((HW + THREADS - 1) / THREADS, B);
+  pixel_ce_bwd_kernel<kRows><<<grid, THREADS, 0, stream>>>(
+      x, bits, g, dl, C, HW, temp, 1.f / temp);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int pixel_ce_fwd(const float* x, const int* bits, float* partials,
+                            float* out, int B, int C, int HW, float temp,
+                            cudaStream_t stream) {
+  return fwd<false>(x, bits, partials, out, B, C, HW, temp, stream);
+}
+
 extern "C" int pixel_ce_bwd(const float* x, const int* bits, const float* g,
                             float* dl, int B, int C, int HW, float temp,
                             cudaStream_t stream) {
-  dim3 grid((HW + THREADS - 1) / THREADS, B);
-  pixel_ce_bwd_kernel<<<grid, THREADS, 0, stream>>>(x, bits, g, dl, C, HW,
-                                                    temp, 1.f / temp);
-  return (int)cudaGetLastError();
+  return bwd<false>(x, bits, g, dl, B, C, HW, temp, stream);
+}
+
+// K9 and K10: (N, C) rows.
+extern "C" int pixel_ce_rows_fwd(const float* x, const int* bits,
+                                 float* partials, float* out, int N, int C,
+                                 float temp, cudaStream_t stream) {
+  return fwd<true>(x, bits, partials, out, 1, C, N, temp, stream);
+}
+
+extern "C" int pixel_ce_rows_bwd(const float* x, const int* bits,
+                                 const float* g, float* dl, int N, int C,
+                                 float temp, cudaStream_t stream) {
+  return bwd<true>(x, bits, g, dl, 1, C, N, temp, stream);
 }

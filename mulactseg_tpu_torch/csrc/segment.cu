@@ -7,6 +7,10 @@
 //       at :560), reached from mulactseg_tpu/ops/segment.py:653-669
 //   K4  scatter_softmax_bwd_nchw / _ssm_bwd_nchw_kernel (pallas_call at
 //       :641), with the coefficient scatter of ops/segment.py:781-820
+//   K7  segment_softmax_max_pallas / _softmax_kernel (pallas_call at :230
+//       in _run_segment_kernel), with the bf16 cast, lane pad and sorted
+//       row gather of ops/segment.py:384-425 around it: the row-major
+//       segment_softmax_max over pre-scaled (P, C) rows
 //
 // Semantics: sid[p] in [0, S) is pixel p's global segment (b*nseg +
 // local); anything else (the marker S) is invalid. K3 returns, for each
@@ -44,6 +48,14 @@
 // most one entry, so plain stores suffice); the per-pixel kernel reads a
 // pixel's C dlm values and only where one is non-zero reads its logits to
 // recompute the softmax.
+//
+// K7 (ssm_rows_fwd) is K3's scheme over (P, C) rows that the caller has
+// already divided by T: one thread per row reads its C contiguous floats
+// (a warp's loads for one class are 80 bytes apart, but the row's other
+// classes then come from L1, so each byte leaves device memory once),
+// rounds each to bf16 as the TPU path's gather stream does, and divides
+// by the normaliser as the TPU kernel does. At (2,359,296, 20) rows it
+// must read 9.4 MB of ids and the 189 MB of rows only where valid.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,6 +66,25 @@
 typedef unsigned long long u64;
 
 namespace {
+
+__device__ __forceinline__ float round_bf16(float v) {
+  unsigned u = __float_as_uint(v);
+  u += 0x7fffu + ((u >> 16) & 1u);  // round to nearest even (finite v)
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// Max of key over the lanes of this warp that share the segment s: after
+// the step with offset d, a lane holds the max over [lane, lane + 2d) of
+// its contiguous run, so each run leader ends with its whole run.
+__device__ __forceinline__ u64 run_max(u64 key, int s, int lane) {
+  const unsigned full = 0xffffffffu;
+  for (int d = 1; d < 32; d <<= 1) {
+    const u64 other = __shfl_down_sync(full, key, d);
+    const int os = __shfl_down_sync(full, s, d);
+    if (lane + d < 32 && os == s && other > key) key = other;
+  }
+  return key;
+}
 
 __global__ void __launch_bounds__(THREADS) ssm_scatter_kernel(
     const float* __restrict__ x, const int* __restrict__ sid,
@@ -97,14 +128,56 @@ __global__ void __launch_bounds__(THREADS) ssm_scatter_kernel(
     if (c < C) {
       u64 key = 0;
       if (valid) key = ((u64)__float_as_uint(e[c] * rz) << 32) | lo;
-      // max over the lanes of this warp that share the segment: after the
-      // step with offset d, a lane holds the max over [lane, lane + 2d) of
-      // its contiguous run, so each run leader ends with its whole run
-      for (int d = 1; d < 32; d <<= 1) {
-        u64 other = __shfl_down_sync(full, key, d);
-        int os = __shfl_down_sync(full, s, d);
-        if (lane + d < 32 && os == s && other > key) key = other;
+      key = run_max(key, s, lane);
+      if (leader) atomicMax(&keys[(long long)s * C + c], key);
+    }
+  }
+}
+
+// K7: one thread per pre-scaled (P, C) row. Each value is rounded to bf16
+// on load (segment.py:394 feeds the TPU kernel bf16 rows), the softmax is
+// taken in float32 with a true division (segment_pallas.py:172-176), and
+// the keys go into the table as in K3.
+__global__ void __launch_bounds__(THREADS) ssm_rows_scatter_kernel(
+    const float* __restrict__ x, const int* __restrict__ sid,
+    u64* __restrict__ keys, int P, int C, int S) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
+  int s = p < P ? sid[p] : S;
+  const bool valid = s >= 0 && s < S;
+  if (!valid) s = -1;
+  if (__ballot_sync(full, valid) == 0) return;  // warp-uniform exit
+
+  float e[MAXC];
+  float z = 0.f;
+  if (valid) {
+    const float* xp = x + p * C;
+    float m = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      if (c < C) {
+        e[c] = round_bf16(xp[c]);
+        m = fmaxf(m, e[c]);
       }
+    }
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      if (c < C) {
+        e[c] = expf(e[c] - m);
+        z += e[c];
+      }
+    }
+  }
+  const int prev = __shfl_up_sync(full, s, 1);
+  const bool leader = valid && (lane == 0 || prev != s);
+  const u64 lo = (u64)(~(unsigned)p);
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+    if (c < C) {
+      u64 key = 0;
+      if (valid) key = ((u64)__float_as_uint(e[c] / z) << 32) | lo;
+      key = run_max(key, s, lane);
       if (leader) atomicMax(&keys[(long long)s * C + c], key);
     }
   }
@@ -200,6 +273,22 @@ extern "C" int ssm_fwd(const float* x, const int* sid, u64* keys, float* vals,
   long long n = (long long)S * C;
   ssm_decode_kernel<<<(int)((n + THREADS - 1) / THREADS), THREADS, 0,
                       stream>>>(keys, vals, pix, n, B * HW);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ssm_rows_fwd(const float* x, const int* sid, u64* keys,
+                            float* vals, int* pix, int P, int C, int S,
+                            cudaStream_t stream) {
+  if (P > 0) {
+    ssm_rows_scatter_kernel<<<(unsigned)(((long long)P + THREADS - 1) /
+                                         THREADS),
+                              THREADS, 0, stream>>>(x, sid, keys, P, C, S);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  long long n = (long long)S * C;
+  ssm_decode_kernel<<<(int)((n + THREADS - 1) / THREADS), THREADS, 0,
+                      stream>>>(keys, vals, pix, n, P);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,12 @@
-"""Per-pixel partial-label CE/MC terms over (B, C, HW) logits: the port of
-mulactseg_tpu/ops/pixel_loss_pallas.py's pixel_partial_ce_nchw.
+"""Per-pixel partial-label CE/MC terms: the port of
+mulactseg_tpu/ops/pixel_loss_pallas.py's pixel_partial_ce_nchw over
+(B, C, HW) logits and pixel_partial_ce over (N, C) rows.
 
-Forward (K1, csrc/pixel_loss.cu pixel_ce_fwd) returns a (4,) float32
-tensor (oh_nll_sum, oh_count, mh_nll_sum, mh_count); the backward (K2,
-pixel_ce_bwd) recomputes the softmax from the inputs. Tensors on the CPU
-take the plain PyTorch versions below; CUDA tensors take the kernels or
-raise.
+Forward (K1, csrc/pixel_loss.cu pixel_ce_fwd; K9, pixel_ce_rows_fwd for
+rows) returns a (4,) float32 tensor (oh_nll_sum, oh_count, mh_nll_sum,
+mh_count); the backward (K2, pixel_ce_bwd; K10, pixel_ce_rows_bwd)
+recomputes the softmax from the inputs. Tensors on the CPU take the plain
+PyTorch versions below; CUDA tensors take the kernels or raise.
 """
 
 from __future__ import annotations
@@ -50,25 +51,39 @@ def pixel_ce_bwd_plain(xc, bits3, g, temp: float):
     return (coef * (pos[:, None] * p - p * t)).to(xc.dtype)
 
 
-def _check(xc, bits3):
-    if xc.dim() != 3 or bits3.shape != (xc.shape[0], 1, xc.shape[2]):
-        raise ValueError(f"want logits (B, C, HW) and bits (B, 1, HW), got "
-                         f"{tuple(xc.shape)} and {tuple(bits3.shape)}")
-    if xc.dtype != torch.float32 or bits3.dtype != torch.int32:
+def _check(x, bits):
+    """x (B, C, HW) logits with bits (B, 1, HW), or x (N, C) rows with
+    bits (N,)."""
+    want = (x.shape[0], 1, x.shape[2]) if x.dim() == 3 else x.shape[:1]
+    if x.dim() not in (2, 3) or bits.shape != want:
+        raise ValueError(f"want logits (B, C, HW) with bits (B, 1, HW) or "
+                         f"rows (N, C) with bits (N,), got {tuple(x.shape)} "
+                         f"and {tuple(bits.shape)}")
+    if x.dtype != torch.float32 or bits.dtype != torch.int32:
         raise TypeError(f"want float32 logits and int32 bits, got "
-                        f"{xc.dtype} and {bits3.dtype}")
-    if not (xc.is_contiguous() and bits3.is_contiguous()):
+                        f"{x.dtype} and {bits.dtype}")
+    if not (x.is_contiguous() and bits.is_contiguous()):
         raise ValueError("logits and bits must be contiguous")
-    if xc.shape[1] > MAX_CLASSES:
-        raise ValueError(f"at most {MAX_CLASSES} classes, got {xc.shape[1]}")
-    if bits3.device != xc.device:
+    if x.shape[1] > MAX_CLASSES:
+        raise ValueError(f"at most {MAX_CLASSES} classes, got {x.shape[1]}")
+    if bits.device != x.device:
         raise ValueError("logits and bits on different devices")
 
 
+def _check_g(g, x):
+    if g.shape != (2,) or g.dtype != torch.float32 or g.device != x.device \
+            or not g.is_contiguous():
+        raise ValueError("g must be a contiguous (2,) float32 tensor on the "
+                         "logits' device")
+
+
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (x, bits, partials | g, out | dl, B, C, HW, temp, stream)
+# (x, bits, partials | g, out | dl, B, C, HW, temp, stream);
+# the rows entry points take (..., N, C, temp, stream)
 _ARGTYPES = {"pixel_ce_fwd": [_VP] * 4 + [_I] * 3 + [_F, _VP],
-             "pixel_ce_bwd": [_VP] * 4 + [_I] * 3 + [_F, _VP]}
+             "pixel_ce_bwd": [_VP] * 4 + [_I] * 3 + [_F, _VP],
+             "pixel_ce_rows_fwd": [_VP] * 4 + [_I] * 2 + [_F, _VP],
+             "pixel_ce_rows_bwd": [_VP] * 4 + [_I] * 2 + [_F, _VP]}
 
 
 def _lib():
@@ -96,10 +111,7 @@ def pixel_ce_bwd(xc, bits3, g, temp: float):
     if xc.device.type == "cpu":
         return pixel_ce_bwd_plain(xc, bits3, g, temp)
     _check(xc, bits3)
-    if g.shape != (2,) or g.dtype != torch.float32 or g.device != xc.device \
-            or not g.is_contiguous():
-        raise ValueError("g must be a contiguous (2,) float32 tensor on the "
-                         "logits' device")
+    _check_g(g, xc)
     B, C, HW = xc.shape
     dl = torch.empty_like(xc)
     code = _lib().pixel_ce_bwd(xc.data_ptr(), bits3.data_ptr(), g.data_ptr(),
@@ -110,24 +122,69 @@ def pixel_ce_bwd(xc, bits3, g, temp: float):
     return dl
 
 
+def pixel_ce_rows_fwd(x, bits, temp: float):
+    """K9: x (N, C) float32 rows, bits (N,) int32. CPU tensors take the
+    plain version (K1's, on the rows' (1, C, N) view); CUDA tensors the
+    kernel."""
+    if x.device.type == "cpu":
+        return pixel_ce_fwd_plain(x.t()[None], bits[None, None], temp)
+    _check(x, bits)
+    N, C = x.shape
+    partials = torch.empty(-(-N // _THREADS) * 4, device=x.device)
+    out = torch.empty(4, device=x.device)
+    code = _lib().pixel_ce_rows_fwd(x.data_ptr(), bits.data_ptr(),
+                                    partials.data_ptr(), out.data_ptr(), N,
+                                    C, float(temp),
+                                    _build.stream_ptr(x.device))
+    _build.check(code, "pixel_ce_rows_fwd")
+    _build.LAUNCHES["pixel_ce_rows_fwd"] += 1
+    return out
+
+
+def pixel_ce_rows_bwd(x, bits, g, temp: float):
+    """K10. g: (2,) float32 device tensor (g_oh, g_mh)."""
+    if x.device.type == "cpu":
+        return pixel_ce_bwd_plain(x.t()[None], bits[None, None], g,
+                                  temp)[0].t()
+    _check(x, bits)
+    _check_g(g, x)
+    N, C = x.shape
+    dl = torch.empty_like(x)
+    code = _lib().pixel_ce_rows_bwd(x.data_ptr(), bits.data_ptr(),
+                                    g.data_ptr(), dl.data_ptr(), N, C,
+                                    float(temp), _build.stream_ptr(x.device))
+    _build.check(code, "pixel_ce_rows_bwd")
+    _build.LAUNCHES["pixel_ce_rows_bwd"] += 1
+    return dl
+
+
 class _PixelPartialCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, xc, bits3, temp):
-        ctx.save_for_backward(xc, bits3)
-        ctx.temp = temp
-        return pixel_ce_fwd(xc, bits3, temp)
+    def forward(ctx, x, bits, temp, rows):
+        ctx.save_for_backward(x, bits)
+        ctx.temp, ctx.rows = temp, rows
+        return (pixel_ce_rows_fwd if rows else pixel_ce_fwd)(x, bits, temp)
 
     @staticmethod
     def backward(ctx, gout):
-        xc, bits3 = ctx.saved_tensors
+        x, bits = ctx.saved_tensors
         # counts carry no logits gradient; the two sums' cotangents stay on
         # the device
         g = gout[0::2].float().contiguous()
-        return pixel_ce_bwd(xc, bits3, g, ctx.temp), None, None
+        bwd = pixel_ce_rows_bwd if ctx.rows else pixel_ce_bwd
+        return bwd(x, bits, g, ctx.temp), None, None, None
 
 
 def pixel_partial_ce_nchw(logits_cs, bits3, temp: float):
     """logits_cs (B, C, HW) float32, bits3 (B, 1, HW) int32 candidate
     bitmasks (0 = invalid pixel) -> (4,) float32 (oh_nll_sum, oh_count,
     mh_nll_sum, mh_count), differentiable in the logits."""
-    return _PixelPartialCE.apply(logits_cs, bits3, temp)
+    return _PixelPartialCE.apply(logits_cs, bits3, temp, False)
+
+
+def pixel_partial_ce(logits2d, bits, temp: float):
+    """The row-major op (pixel_loss_pallas.py:163-195): logits2d (N, C)
+    float32, bits (N,) int32 candidate bitmasks (0 = invalid pixel) ->
+    (4,) float32 (oh_nll_sum, oh_count, mh_nll_sum, mh_count),
+    differentiable in the logits."""
+    return _PixelPartialCE.apply(logits2d, bits, temp, True)

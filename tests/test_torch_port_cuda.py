@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K5) against their plain PyTorch versions on
+"""The port's CUDA kernels (K1-K10) against their plain PyTorch versions on
 the card, at small and ragged shapes the recipe run does not reach (HW not
 a multiple of the block, C from 3 to 31, underflow, absent segments).
 
@@ -17,7 +17,14 @@ random cotangents, so dl = (dlm - w p) / T can cancel far below its
 operands: its error is held to 8 float32 ulps (8 * 2**-23) of the largest
 operand (|dlm| + |w| p) / T. K5 (segment max of arbitrary values) is
 exact: both outputs equal the plain version's (-0.0 counts as +0.0 on
-both sides).
+both sides). K6 and K8 write bf16-rounded values: within one bf16 ulp
+(2**-7 of the larger; the exps may differ by a float32 ulp, which can move
+a value across a rounding boundary), retired ids exact, and a choice that
+differs from the plain one must pick a same-segment pixel whose float32
+probability is within 1e-6 of the plain pick's. K7 maxima to 1e-6 with
+argmax pixels held as K3's; the row op's gradient (its plain backward,
+which cancels in dl_elem - w p) against the CPU to 8 float32 ulps of its
+largest operand, C. K9 and K10 as K1 and K2.
 """
 
 import numpy as np
@@ -178,3 +185,138 @@ def test_segment_max_kernel_matches_plain(dev, P, C, signed, planes):
     assert torch.equal(pix, ppix) and torch.equal(vals, pvals)
     assert (pix[3] == P).all() and (vals[3] == 0).all()
     assert (pix[5] < P).all() and (vals[5] == 0).all()
+
+
+def _rows(rng, P, C, underflow):
+    """(P, C) rows scaled by 1/T = 10 with exact ties between row pairs (or
+    an underflowed class), runs of 6 rows, absent segment 3 and 5% invalid
+    rows; S = 11."""
+    x = rng.randn(P, C).astype(np.float32)
+    if underflow:
+        x[:, 0] -= 40.0
+    else:
+        x[1::2] = x[0:P - 1:2]
+    S = 11
+    sid = np.repeat(rng.randint(0, S, -(-P // 6)), 6)[:P]
+    sid[sid == 3] = S
+    sid[rng.rand(P) < 0.05] = S
+    return (x * 10).astype(np.float32), sid.astype(np.int32), S
+
+
+def _check_prereduce(got, want, probs, sid, B, HW):
+    """K6/K8 outputs (planes (C, P), choice (C, B*nb), sid2) against the
+    plain version's; probs (C, P) float32 are the plain probabilities."""
+    (planes, choice, sid2), (pplanes, pchoice, psid2) = got, want
+    # + 1e-38: a subnormal probability keeps fewer bits in bf16
+    tol = 2.0 ** -7 * torch.maximum(planes.abs(), pplanes.abs()) + 1e-38
+    assert ((planes - pplanes).abs() <= tol).all()
+    assert (planes == pplanes).float().mean() > 0.999
+    assert torch.equal(sid2, psid2)
+    C, NB = choice.shape
+    nb = NB // B
+    blk = torch.arange(NB, device=choice.device)
+    lead = (blk // nb) * HW + (blk % nb) * 4
+    differ = choice != pchoice
+    q, pq = lead + choice.long(), lead + pchoice.long()
+    assert ((blk % nb) * 4 + choice < HW).all()
+    cls = torch.arange(C, device=choice.device)[:, None].expand(C, NB)
+    assert (sid[q[differ]] == sid[lead.expand(C, NB)[differ]]).all()
+    assert ((probs[cls, q] - probs[cls, pq]).abs()[differ] <= 1e-6).all()
+
+
+@pytest.mark.parametrize("B,C,HW", [(2, 20, 33 * 31), (3, 7, 4096)])
+def test_prereduce_nchw_kernel_matches_plain(dev, B, C, HW):
+    """K6, and the pre-reduced group term it feeds (K6, K5, map back), at a
+    ragged HW (a short last block per image) and an aligned one."""
+    rng = np.random.RandomState(HW + C + 1)
+    x, sid3, S = _segments(rng, B, C, HW, 9, False)
+    x, sid3 = torch.from_numpy(x).to(dev), torch.from_numpy(sid3).to(dev)
+    _build.reset_launches()
+    got = segment.prereduce_softmax_nchw(x, sid3, S, 0.1)
+    want = segment.prereduce_plain(x, sid3.reshape(B, HW), S, 0.1)
+    probs = segment._softmax(x, 0.1).permute(1, 0, 2).reshape(C, B * HW)
+    _check_prereduce(got, want, probs, sid3.reshape(-1), B, HW)
+    vals, pix = segment._ssm_prereduced(x, sid3, S, 0.1)
+    assert dict(_build.LAUNCHES) == {"prereduce_nchw": 2, "seg_max_fwd": 1}
+    P = B * HW
+    absent = pix == P
+    pvals, ppix = segment.ssm_fwd_plain(x, sid3, S, 0.1)
+    assert torch.equal(absent, ppix == P) and absent.any()
+    assert torch.equal(vals, segment._round_bf16(vals))
+    assert ((vals - pvals).abs() <= 2.0 ** -7 * pvals + 1e-38).all()
+    q = pix[~absent].long()
+    cls = torch.arange(C, device=dev).expand(S, C)[~absent]
+    seg = torch.arange(S, device=dev)[:, None].expand(S, C)[~absent]
+    assert torch.equal(sid3.reshape(P)[q], seg)
+    assert ((probs[cls, q] - pvals[~absent]).abs()
+            <= 2.0 ** -7 * pvals[~absent] + 1e-6).all()
+
+
+@pytest.mark.parametrize("P,C", [(2 * 33 * 31, 20), (4096 + 17, 7)])
+def test_prereduce_rows_kernel_matches_plain(dev, P, C):
+    """K8 over (P, C) rows, one run of blocks from row 0 (P % 4 != 0 in
+    both shapes)."""
+    rng = np.random.RandomState(P + C)
+    u, sid, S = _rows(rng, P, C, False)
+    u, sid = torch.from_numpy(u).to(dev), torch.from_numpy(sid).to(dev)
+    _build.reset_launches()
+    got = segment.prereduce_softmax_rows(u, sid, S)
+    want = segment.prereduce_plain(u.t()[None], sid[None], S, 1.0)
+    assert dict(_build.LAUNCHES) == {"prereduce_rows": 1}
+    _check_prereduce(got, want, torch.softmax(u, dim=1).t(), sid, 1, P)
+
+
+@pytest.mark.parametrize("underflow", [False, True])
+@pytest.mark.parametrize("P,C", [(2 * 33 * 31, 20), (4096 + 17, 7)])
+def test_segment_rows_kernel_matches_plain(dev, P, C, underflow):
+    """K7 over (P, C) rows, and one autograd pass of the row op."""
+    rng = np.random.RandomState(P + C + underflow)
+    u, sid, S = _rows(rng, P, C, underflow)
+    u, sid = torch.from_numpy(u).to(dev), torch.from_numpy(sid).to(dev)
+    _build.reset_launches()
+    vals, pix = segment.ssm_rows_fwd(u, sid, S)
+    pvals, ppix = segment.ssm_rows_fwd_plain(u, sid, S)
+    assert dict(_build.LAUNCHES) == {"ssm_rows_fwd": 1}
+    absent = pix == P
+    assert torch.equal(absent, ppix == P) and absent.any()
+    assert (vals[absent] == 0).all()
+    assert (vals - pvals).abs().max() <= 1e-6
+    ur = segment._round_bf16(u)
+    probs = torch.softmax(ur, dim=1)
+    q = pix[~absent].long()
+    cls = torch.arange(C, device=dev).expand(S, C)[~absent]
+    assert (probs[q, cls] - pvals[~absent]).abs().max() <= 1e-6
+    seg = torch.arange(S, device=dev)[:, None].expand(S, C)[~absent]
+    assert torch.equal(sid[q], seg)
+    if underflow:
+        assert (vals[~absent[:, 0], 0] == 0).all()
+
+    ut = u.clone().requires_grad_(True)
+    mx, _ = segment.segment_softmax_max(ut, sid, S)
+    mx.sum().backward()
+    cpu = u.cpu().requires_grad_(True)
+    mxc, _ = segment.segment_softmax_max(cpu, sid.cpu(), S)
+    mxc.sum().backward()
+    # dl = dl_elem - w p cancels: with g = 1 its operands are at most C
+    # (w sums up to C entries g p_c <= 1), so hold it to 8 ulps of C
+    assert (ut.grad.cpu() - cpu.grad).abs().max() <= 8 * 2.0 ** -23 * C
+
+
+@pytest.mark.parametrize("N,C", [(33 * 31, 20), (4096 + 3, 31)])
+def test_pixel_ce_rows_kernels_match_plain(dev, N, C):
+    """K9 and K10 over (N, C) rows."""
+    rng = np.random.RandomState(N + C)
+    x = torch.from_numpy((rng.randn(N, C) * 3).astype(np.float32)).to(dev)
+    bits = torch.from_numpy(_bits(rng, 1, C, N).reshape(N)).to(dev)
+    _build.reset_launches()
+    got = pixel_loss.pixel_ce_rows_fwd(x, bits, 0.1)
+    want = pixel_loss.pixel_ce_fwd_plain(x.t()[None], bits[None, None], 0.1)
+    assert torch.equal(got[1::2], want[1::2])
+    torch.testing.assert_close(got[0::2], want[0::2], rtol=1e-5, atol=0)
+    g = torch.tensor([2.0, 3.0], device=dev)
+    dl = pixel_loss.pixel_ce_rows_bwd(x, bits, g, 0.1)
+    want_dl = pixel_loss.pixel_ce_bwd_plain(x.t()[None], bits[None, None], g,
+                                            0.1)[0].t()
+    assert (dl - want_dl).abs().max() <= 1e-6 * want_dl.abs().max()
+    assert dict(_build.LAUNCHES) == {"pixel_ce_rows_fwd": 1,
+                                     "pixel_ce_rows_bwd": 1}

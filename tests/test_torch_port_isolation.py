@@ -113,12 +113,22 @@ def test_non_cpu_tensors_take_the_kernel_path(monkeypatch):
     pix = torch.empty(8, 20, dtype=torch.int32, device="meta")
     planes = torch.empty(20, 128, device="meta").t()
     sid = torch.empty(128, dtype=torch.int32, device="meta")
+    rows = torch.empty(128, 20, device="meta")
     calls = [lambda: pixel_loss.pixel_ce_fwd(x, bits, 0.1),
              lambda: pixel_loss.pixel_ce_bwd(x, bits, g2, 0.1),
              lambda: segment.ssm_fwd(x, bits, 8, 0.1),
              lambda: segment.ssm_bwd(x, vals, pix, vals, 0.1),
              lambda: segment_max.seg_max_fwd(planes, sid, 8),
-             lambda: segment_max.segment_max_grad(planes, sid, 8)]
+             lambda: segment_max.segment_max_grad(planes, sid, 8),
+             lambda: segment.prereduce_softmax_nchw(x, bits, 8, 0.1),
+             # past the guard: K6 first
+             lambda: segment.segment_softmax_max_nchw(x, bits, 9216, 0.1),
+             lambda: segment.prereduce_softmax_rows(rows, sid, 8),
+             lambda: segment.ssm_rows_fwd(rows, sid, 8),
+             lambda: segment.segment_softmax_max(rows, sid, 8),
+             lambda: pixel_loss.pixel_ce_rows_fwd(rows, sid, 0.1),
+             lambda: pixel_loss.pixel_ce_rows_bwd(rows, sid, g2, 0.1),
+             lambda: pixel_loss.pixel_partial_ce(rows, sid, 0.1)]
     for call in calls:
         with pytest.raises(RuntimeError, match="kernel library"):
             call()
@@ -130,6 +140,10 @@ def test_non_cpu_tensors_take_the_kernel_path(monkeypatch):
         segment_max.seg_max_fwd(planes, sid.long(), 8)
     with pytest.raises(ValueError):
         segment_max.seg_max_fwd(planes, sid[:64], 8)
+    with pytest.raises(ValueError):
+        segment.ssm_rows_fwd(rows, sid[:64], 8)
+    with pytest.raises(ValueError):
+        pixel_loss.pixel_ce_rows_fwd(rows.t(), sid, 0.1)
     assert not _build.LAUNCHES.get("pixel_ce_fwd")
     assert not _build.LAUNCHES.get("seg_max_fwd")
 
