@@ -15,10 +15,15 @@
    at those shapes (nseg 2048), on logits from a forward pass of the model,
    and times both with CUDA events (windows of 5 back-to-back calls, the
    kernels as CUDA graph replays, median of 20 windows); K4 is also timed
-   beside the library's softmax backward.
+   beside the library's softmax backward. K3 is held as well on
+   adversarial ids at full size (one id per run of 4 pixels, ids equal
+   modulo its shared slot count, more segments in a span than slots).
+   Before K4 runs, every live argmax pixel must lie in its own segment
+   (K4's precondition).
 4. The same for the kernels past the reference's K3 guard
    (num_segments + 1 > 9216, mulactseg_tpu/ops/segment.py:653-654): K6
-   with the nseg-4096 batch (S = 16,384); then, on the logits as
+   with the nseg-4096 batch (S = 16,384), and K4 on the pre-reduced
+   term's outputs (precondition first); then, on the logits as
    (2,359,296, 20) rows, K7 and K8 (the row-major group term, rows divided
    by T) and K9 and K10 (the row-major pixel loss). K6 and K8 write
    bf16-rounded values: bf16-exact, within one bf16 ulp of the plain
@@ -80,6 +85,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -171,6 +177,30 @@ def time_ms(fn, graph=False):
     return statistics.median(times)
 
 
+def ptxas_summary(log):
+    """One line per kernel of an nvcc -Xptxas -v report: its name
+    (demangled by cu++filt, which ships beside nvcc, without its namespace
+    and parameters), registers and spills."""
+    from mulactseg_tpu_torch.ops import _build
+
+    rows = re.findall(r"Compiling entry function '(\w+)'.*?"
+                      r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+                      r"Used (\d+) registers", log, flags=re.S)
+    if not rows:
+        return []
+    names = subprocess.run(
+        [str(Path(_build._nvcc()).with_name("cu++filt"))],
+        input="\n".join(r[0] for r in rows), check=True, capture_output=True,
+        text=True).stdout.splitlines()
+    # "void <unnamed>::k<(int)20>(const float *, ...)" -> "k<20>"
+    names = [re.sub(r"\([\w ]+\)(?=-?\d)|<unnamed>::|\(anonymous "
+                    r"namespace\)::", "", n).split("(")[0]
+             .removeprefix("void ") for n in names]
+    return [f"{name}: {regs} registers, {st}/{ld} bytes spilled "
+            f"(stores/loads)"
+            for name, (_, st, ld, regs) in zip(names, rows)]
+
+
 def bound(nbytes, nops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
@@ -214,6 +244,89 @@ def stage1_ids(batch, dev, nseg):
     sid3 = torch.where(n_cand > 1, spx + off, B * nseg).int().reshape(
         B, 1, HW)
     return bits3, n_cand, sid3
+
+
+def check_in_segment(sid3, pix, what):
+    """K4's precondition: every live argmax pixel lies in its own segment
+    (sid3[pix[s, c]] == s wherever pix[s, c] < P)."""
+    S, C = pix.shape
+    P = sid3.numel()
+    live = pix < P
+    seg = torch.arange(S, device=pix.device)[:, None].expand(S, C)[live]
+    check(bool((sid3.reshape(P)[pix[live].long()].long() == seg).all()),
+          f"{what}: an argmax pixel lies outside its segment")
+
+
+def check_k3(xc, sid3, S, temp, vals, pix, what):
+    """K3's (vals, pix) against its plain version on the same inputs:
+    absent sets equal with value 0.0, maxima within 1e-6, each argmax pixel
+    attaining the plain max within 1e-6 (ties may resolve to another pixel
+    only where probabilities agree within rounding) and lying in its
+    segment. Returns the max abs error of the values."""
+    from mulactseg_tpu_torch.ops import segment
+
+    _, C, HW = xc.shape
+    P = sid3.numel()
+    pvals, ppix = segment.ssm_fwd_plain(xc, sid3, S, temp)
+    torch.cuda.synchronize()
+    absent = pix == P
+    check(torch.equal(absent, ppix == P), f"{what}: absent sets differ")
+    check(bool((vals[absent] == 0).all()), f"{what}: absent value is not 0.0")
+    err = (vals - pvals).abs().max().item()
+    check(err <= 1e-6, f"{what}: max values differ by {err}")
+    probs = segment._softmax(xc, temp)
+    q = pix[~absent].long()
+    cls = torch.arange(C, device=xc.device).expand(S, C)[~absent]
+    tie_err = (probs[q // HW, cls, q % HW] - pvals[~absent]).abs().max()
+    check(tie_err.item() <= 1e-6,
+          f"{what}: argmax pixel off the max by {tie_err.item()}")
+    check_in_segment(sid3, pix, what)
+    return err
+
+
+def colliding_ids(dev, S):
+    """Adversarial ids for K3 at the stage-1 size: one id per run of 4
+    pixels, ids equal modulo K3's shared slot count in groups of 32 runs
+    (so most runs of a span find their slot held), a quarter of the runs
+    invalid."""
+    from mulactseg_tpu_torch.ops import segment
+
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    runs = B * H * W // 4
+    r = torch.arange(runs)
+    ids = (r * segment.K3_SLOTS + r // 32) % S
+    ids = torch.where(torch.rand(runs, generator=gen) < 0.25, S, ids)
+    return ids.repeat_interleave(4).int().reshape(B, 1, H * W).to(dev)
+
+
+def group_cotangent(vals, pix, target):
+    """The group term's cotangent of the max values, as lossdecomp_fused
+    makes it: -log(max + 1e-8) over the present target entries, over one
+    plus their count."""
+    P = B * H * W
+    mx = vals.clone().requires_grad_(True)
+    present = (pix[:, 0] < P).reshape(target.shape[:2])
+    entry = (target > 0.5) & present[:, :, None]
+    gnll = -torch.log(mx.reshape(target.shape) + 1e-8)
+    (torch.where(entry, gnll, 0.0).sum() / (1.0 + entry.sum())).backward()
+    return mx.grad.contiguous()
+
+
+def check_k4(xc, sid3, vals, pix, gv, temp, what):
+    """K4's precondition on (vals, pix), then K4 against the dense plain
+    backward: max abs error within 1e-6 of max |dl|. Returns (the kernel's
+    dl, the error)."""
+    from mulactseg_tpu_torch.ops import segment
+
+    check_in_segment(sid3, pix, what)
+    got = segment.ssm_bwd(xc, sid3, vals, pix, gv, temp)
+    want = segment.ssm_bwd_plain(xc, vals, pix, gv, temp)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(scale > 0 and err <= 1e-6 * scale,
+          f"{what}: dl differs, max abs err {err} vs max |dl| {scale}")
+    return got, err
 
 
 def kernel_checks(logits, batch, dev):
@@ -275,27 +388,16 @@ def kernel_checks(logits, batch, dev):
                  None))
     del want_dl
 
-    # K3
+    # K3, on the recipe's ids and on adversarial ones
     vals, pix = segment.ssm_fwd(xc, sid3, S, temp)
-    pvals, ppix = segment.ssm_fwd_plain(xc, sid3, S, temp)
-    torch.cuda.synchronize()
-    absent, pabsent = pix == P, ppix == P
-    check(torch.equal(absent, pabsent), "K3 absent sets differ")
-    check(bool((vals[absent] == 0).all()), "K3 absent value is not 0.0")
-    err = (vals - pvals).abs().max().item()
-    check(err <= 1e-6, f"K3 max values differ by {err}")
-    # the kernel's argmax pixel attains the plain max (ties may resolve to
-    # another pixel only where probabilities agree within rounding)
-    probs = segment._softmax(xc, temp)
-    q = pix[~absent].long()
-    cls = torch.arange(C, device=dev).expand(S, C)[~absent]
-    at = probs[q // HW, cls, q % HW]
-    tie_err = (at - pvals[~absent]).abs().max().item()
-    check(tie_err <= 1e-6, f"K3 argmax pixel off the max by {tie_err}")
-    # the argmax pixels lie in their segments
-    check(bool((sid3.reshape(P)[q] == torch.arange(S, device=dev)[:, None]
-                .expand(S, C)[~absent]).all()), "K3 argmax outside segment")
-    rows.append(("ssm_fwd", err,
+    err = check_k3(xc, sid3, S, temp, vals, pix, "K3")
+    adv = colliding_ids(dev, S)
+    adv_err = check_k3(xc, adv, S, temp, *segment.ssm_fwd(xc, adv, S, temp),
+                       "K3 on colliding ids")
+    print(f"K3 on colliding ids (one id per run of 4, slots held by other "
+          f"ids): max abs err {adv_err}", flush=True)
+    del adv
+    rows.append(("ssm_fwd", max(err, adv_err),
                  time_ms(lambda: segment.ssm_fwd(xc, sid3, S, temp),
                          graph=True),
                  time_ms(lambda: segment.ssm_fwd_plain(xc, sid3, S, temp)),
@@ -304,21 +406,12 @@ def kernel_checks(logits, batch, dev):
                  None))
 
     # K4, with the group term's cotangent of the max values
-    mx = vals.clone().requires_grad_(True)
-    present = (pix[:, 0] < P).reshape(B, NSEG)
-    entry = (target > 0.5) & present[:, :, None]
-    gnll = -torch.log(mx.reshape(B, NSEG, C) + 1e-8)
-    (torch.where(entry, gnll, 0.0).sum() / (1.0 + entry.sum())).backward()
-    gv = mx.grad.contiguous()
-    got = segment.ssm_bwd(xc, vals, pix, gv, temp)
-    want_dl = segment.ssm_bwd_plain(xc, vals, pix, gv, temp)
-    torch.cuda.synchronize()
-    err = (got - want_dl).abs().max().item()
-    scale = want_dl.abs().max().item()
-    check(scale > 0 and err <= 1e-6 * scale,
-          f"K4 dl differs: max abs err {err} vs max |dl| {scale}")
+    gv = group_cotangent(vals, pix, target)
+    got, err = check_k4(xc, sid3, vals, pix, gv, temp, "K4")
+    scale = got.abs().max().item()
     # the library's softmax backward computes the same dl from the softmax
     # and the dense cotangent of the probabilities (g / T at each argmax)
+    probs = segment._softmax(xc, temp)
     live = (pix < P) & (gv != 0)
     qa = pix[live].long()
     dense_g = torch.zeros(B, C, HW, device=dev)
@@ -329,11 +422,11 @@ def kernel_checks(logits, batch, dev):
     lib_err = (lib - got).abs().max().item()
     check(lib_err <= 1e-6 * scale,
           f"K4 dl differs from the softmax backward by {lib_err}")
-    del got, want_dl, lib
+    del got, lib
     n_live_pix = int(torch.unique(qa).numel())
     rows.append(("ssm_bwd", err,
-                 time_ms(lambda: segment.ssm_bwd(xc, vals, pix, gv, temp),
-                         graph=True),
+                 time_ms(lambda: segment.ssm_bwd(xc, sid3, vals, pix, gv,
+                                                 temp), graph=True),
                  time_ms(lambda: segment.ssm_bwd_plain(xc, vals, pix, gv,
                                                        temp)),
                  bound(P * row_bytes + 3 * S * C * 4 + n_live_pix * row_bytes,
@@ -451,7 +544,8 @@ def large_kernel_checks(logits, batch, dev):
     """K6 at the stage-1 shapes with nseg 4096 (S = 16,384), then K7 and K8
     on the logits as pre-scaled (P, C) rows and K9 and K10 on them as
     rows, each against its plain version and timed beside it. Returns the
-    kernels-line rows and the row inputs (rows, scaled rows, ids, bits)."""
+    kernels-line rows, the row inputs (rows, scaled rows, ids, bits) and
+    K4's max abs error on the pre-reduced term's outputs."""
     from mulactseg_tpu_torch.ops import pixel_loss, segment
 
     HW, P, C = H * W, B * H * W, NUM_CLASSES
@@ -476,9 +570,9 @@ def large_kernel_checks(logits, batch, dev):
     probs = segment._softmax(xc, temp).permute(1, 0, 2).reshape(C, P)
     torch.cuda.synchronize()
     err, *counts = check_prereduce(got, want, probs, sid, B, HW, "K6")
-    term = check_prereduced_term(
-        got, want, segment._ssm_prereduced(xc, sid3, S, temp), probs, sid,
-        B, HW, counts, "K6")
+    pre_vals, pre_pix = segment._ssm_prereduced(xc, sid3, S, temp)
+    term = check_prereduced_term(got, want, (pre_vals, pre_pix), probs, sid,
+                                 B, HW, counts, "K6")
     print(f"K6: values within one bf16 ulp of the plain version; "
           f"{counts[0]} of {want[0].numel()} values and {counts[1]} of "
           f"{want[1].numel()} choices differ (each a near-tie). K6 -> K5 -> "
@@ -486,6 +580,13 @@ def large_kernel_checks(logits, batch, dev):
           f"and {term[1]} argmax pixels of {S * C} differ (near-ties)",
           flush=True)
     del got, want, probs
+    # K4 on the pre-reduced term's outputs, the backward of this path
+    target = torch.as_tensor(batch["target"]).to(dev)
+    _, k4_err = check_k4(xc, sid3, pre_vals, pre_pix,
+                         group_cotangent(pre_vals, pre_pix, target), temp,
+                         "K4 on the pre-reduced term")
+    print(f"K4 on the pre-reduced term (nseg {NSEG_LARGE}): max abs err "
+          f"{k4_err}", flush=True)
     rows.append(("prereduce_nchw", err,
                  time_ms(lambda: segment.prereduce_softmax_nchw(
                      xc, sid3, S, temp), graph=True),
@@ -586,7 +687,7 @@ def large_kernel_checks(logits, batch, dev):
                  bound(P * 4 + n_live * row_bytes + P * row_bytes + 8,
                        12 * n_live * C),
                  None))
-    return rows, (x2d, scaled, sid, bits)
+    return rows, (x2d, scaled, sid, bits), k4_err
 
 
 def row_op_pass(x2d, scaled, sid, bits):
@@ -1024,7 +1125,8 @@ def main():
     from mulactseg_tpu_torch.engine.train import make_train_step
     from mulactseg_tpu_torch.models import convert
     from mulactseg_tpu_torch.models.factory import get_model
-    from mulactseg_tpu_torch.ops import _build
+    # segment sets csrc/segment.cu's -D constants before the build
+    from mulactseg_tpu_torch.ops import _build, segment  # noqa: F401
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -1040,9 +1142,8 @@ def main():
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.1f} s (parallel nvcc, sm_90a)", flush=True)
     for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in ptxas_summary(log):
+            print(f"  {name}: {line}")
 
     cfg = Config(num_classes=NUM_CLASSES - 1, nseg=NSEG, crop_size=(H, W),
                  train_batch_size=B, dtype="bfloat16", separable_conv=True,
@@ -1069,8 +1170,11 @@ def main():
           and bool(torch.isfinite(logits).all()), "bad model logits")
     rows = kernel_checks(logits, batches[0], dev)
     batches_large = make_batches(2, seed=1, nseg=NSEG_LARGE)
-    large_rows, row_inputs = large_kernel_checks(logits, batches_large[0],
-                                                 dev)
+    large_rows, row_inputs, k4_pre_err = large_kernel_checks(
+        logits, batches_large[0], dev)
+    # K4's row gives its larger error of the two forward branches
+    rows = [(n, max(e, k4_pre_err) if n == "ssm_bwd" else e, *rest)
+            for n, e, *rest in rows]
     del logits
     torch.cuda.synchronize()
 

@@ -1,6 +1,7 @@
 // Group (MIL) term of the stage-1 lossdecomp loss: per-(segment, class)
 // max of softmax(x / T) with its first argmax pixel (K3), and the sparse
-// backward through it (K4), over NCHW logits viewed as (B, C, HW).
+// backward through it (K4), over NCHW logits viewed as (B, C, HW); and
+// K3's function over pre-scaled (P, C) rows (K7).
 //
 // Replaces the TPU kernels of mulactseg_tpu/ops/segment_pallas.py:
 //   K3  scatter_softmax_max_nchw / _scatter_max_nchw_kernel (pallas_call
@@ -18,59 +19,134 @@
 // raster order (global index b*HW + hw) that attains it; an absent segment
 // gives (0.0, P); a present segment whose probabilities all underflowed to
 // exactly 0.0 still records its pixel. K4 takes the cotangent g (S, C) of
-// the max, puts g*max at each argmax pixel (dlm) and writes
-// dl = (dlm - (sum_c dlm) * p) / T.
+// the max and writes dl = (d - (sum_c d) * p) / T, where d holds g*max at
+// each argmax (pixel, class) with g != 0, and 0 elsewhere.
+//
+// K4's precondition: every live entry's pixel lies in its own segment,
+// sid[pix[s, c]] == s wherever pix[s, c] < P. K3 keys only valid pixels of
+// s; the pre-reduced term's winner (ops/segment.py _ssm_prereduced,
+// csrc/prereduce.cu) is a block member that shares its leader's id. So
+// both forward branches meet it, and a pixel's entries all sit in the row
+// of its own segment. ops/segment.py ssm_bwd_plain keeps the dense form,
+// which holds on any input.
 //
 // What bounds them on an H100: bytes. At the recipe shapes (B 4, C 20,
-// 768^2, S 8192) K3 reads the 9.4 MB of segment ids and the logits of the
-// valid (multi-hot) pixels only: at most the 189 MB of float32 logits
-// (~199 MB, ~59 us at 3.35 TB/s), about 40% of them on the recipe's data,
-// plus atomic traffic to an (S, C) table that lives in L2. A warp none of
-// whose pixels is valid stops after reading its ids. K4's function needs
-// the 189 MB dl write,
-// the sparse (S, C) inputs and the logits only at pixels that carry a
-// coefficient (~60 us); this first version also zero-fills, writes and
-// reads a dense (B, C, HW) dlm buffer (+378 MB).
+// 768^2, S 8192) K3 needs the 9.4 MB of segment ids, the logits of the
+// valid (multi-hot) pixels only (about 40% of the 189 MB on the recipe's
+// data) and the 1.3 MB (S, C) key table: ~0.026 ms at 3.35 TB/s. K4 needs
+// its 189 MB dl write, the three (S, C) tables and the logits of the
+// pixels that carry a coefficient (~7%): ~0.057 ms.
 //
-// Design. Both per-pixel kernels run on a grid (pixel blocks, B), so a
-// pixel's image and offset need no integer division, take each exp once
-// and multiply by one reciprocal of the normaliser instead of C divides.
-// K3: one thread per pixel computes its softmax in registers and
-// packs each class's value as the 64-bit key (float_bits(p) << 32) |
-// ~pixel. p >= 0, so its bits order like its value, and ~pixel makes ties
-// go to the lowest raster index; atomicMax of the key into a zeroed (S, C)
-// table is then exactly "max, first argmax", and a 0.0 probability still
-// beats the zero init. Raster runs of one segment are merged inside each
-// warp first (shuffle reduction over lanes of equal sid), so only the run
-// leader issues the atomic. The TPU kernel's doubling-scan run merge, SMEM
-// walk, -1 init and S <= 9216 VMEM guard are not needed. K4: a scatter
-// kernel over the S*C entries fills dlm (each (pixel, class) receives at
-// most one entry, so plain stores suffice); the per-pixel kernel reads a
-// pixel's C dlm values and only where one is non-zero reads its logits to
-// recompute the softmax.
+// Both kernels take the class count as a template parameter for the
+// stage-1 model's 20 outputs (any other C <= 32 takes a run-time
+// instance), so a pixel's C loads are issued back to back and its softmax
+// stays in registers. p_c = exp(x_c / T - max) * (1 / sum):
+// one exp per class and one reciprocal, the same arithmetic in K3 and K4.
 //
-// K7 (ssm_rows_fwd) is K3's scheme over (P, C) rows that the caller has
-// already divided by T: one thread per row reads its C contiguous floats
-// (a warp's loads for one class are 80 bytes apart, but the row's other
-// classes then come from L1, so each byte leaves device memory once),
-// rounds each to bf16 as the TPU path's gather stream does, and divides
-// by the normaliser as the TPU kernel does. At (2,359,296, 20) rows it
-// must read 9.4 MB of ids and the 189 MB of rows only where valid.
+// K3 design. Each block owns a span of SPAN consecutive pixels of one
+// image (grid (spans, B)) and walks it 32 pixels a warp at a time, the
+// next ids loaded one step ahead. A pixel's class value is the 64-bit key
+// (float_bits(p) << 32) | ~pixel: p >= 0, so its bits order like its
+// value, and ~pixel makes ties go to the lowest raster index; the max of
+// the keys is then exactly "max, first argmax" under any order of
+// merging, and a 0.0 probability still beats the zero init. One ballot
+// marks where the warp's raster runs start. The warp stages its values in
+// shared memory as (class, lane) words; lane c then walks class c over
+// the 32 pixels (16-byte loads) and at the end of each run has the run's
+// max and first argmax, with no shuffle per class. It merges them into a
+// direct-mapped shared table of NSLOT slots (slot = s mod NSLOT, its tag
+// claimed once per run with atomicCAS, a 64-bit shared atomicMax). A run
+// whose slot another segment holds sends its keys straight to the global
+// table, so the result stays exact whatever the ids are. After the span,
+// each non-zero slot key goes to the global (S, C) table with one
+// atomicMax: one global atomic per (span, segment, class) instead of one
+// per raster run and class. A decode kernel turns the table into (vals,
+// pix). SPAN and NSLOT come from ops/segment.py (K3_SPAN, K3_SLOTS) as
+// -D flags: the fastest of the spans (256 to 8192) and slot counts timed
+// on an H100 (PERF.md); global atomics proved cheap (the first K3
+// without them was 5% faster), so a short span that keeps more blocks in
+// flight beats a long one that merges more. The TPU
+// kernel's doubling-scan run merge, SMEM jump walk, -1 init and S <= 9216
+// VMEM guard are not needed.
+//
+// K4 design. One thread per pixel gathers by its segment id instead of
+// scattering into a dense buffer: it reads s = sid[p] and, for a valid s,
+// the row pix[s, :] (a warp's lanes mostly share s, so the row comes from
+// L1), reads g and vals only where pix[s, c] == p, and only where some
+// coefficient is non-zero reads the pixel's logits to recompute the
+// softmax. It writes dl once, one coalesced streaming store per class
+// plane, with the dense form's arithmetic (sum in class order), so the
+// result does not depend on the design.
+//
+// K7 (ssm_rows_fwd) is K3's first design over (P, C) rows that the caller
+// has already divided by T: one thread per row reads its C contiguous
+// floats (a warp's loads for one class are 80 bytes apart, but the row's
+// other classes then come from L1, so each byte leaves device memory
+// once), rounds each to bf16 as the TPU path's gather stream does, divides
+// by the normaliser as the TPU kernel does, merges raster runs inside each
+// warp by shuffles and issues one global atomicMax per run and class. At
+// (2,359,296, 20) rows it must read 9.4 MB of ids and the 189 MB of rows
+// only where valid.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define MAXC 32
 #define THREADS 256
+#define WARPS (THREADS / 32)
+// SPAN: pixels of one image per K3 block (a multiple of 32); NSLOT: slots
+// of K3's shared table (a power of two). ops/_build.py passes both.
+#if !defined(SPAN) || !defined(NSLOT)
+#error "build with -DSPAN=... -DNSLOT=... (ops/segment.py K3_SPAN, K3_SLOTS)"
+#endif
+// words between two classes' rows of a warp's staged values: a multiple
+// of 4 for 16-byte loads, and 4 * 8 lanes cover the 32 banks once
+#define STAGE 36
+#define EMPTY (-1)  // an unclaimed slot's tag
 
 typedef unsigned long long u64;
 
 namespace {
 
+// Classes known at compile time (NC > 0) or at run time (NC == 0, C <=
+// MAXC): per-class registers and loops are sized by kMax.
+template <int NC>
+struct Cls {
+  static constexpr int kMax = NC > 0 ? NC : MAXC;
+  __device__ __forceinline__ static int n(int c) { return NC > 0 ? NC : c; }
+};
+
 __device__ __forceinline__ float round_bf16(float v) {
   unsigned u = __float_as_uint(v);
   u += 0x7fffu + ((u >> 16) & 1u);  // round to nearest even (finite v)
   return __uint_as_float(u & 0xffff0000u);
+}
+
+// Softmax of x / T at one pixel whose C classes lie `stride` floats apart.
+template <int NC>
+__device__ __forceinline__ void softmax_at(const float* __restrict__ xp,
+                                           int stride, int C, float inv_temp,
+                                           float (&p)[Cls<NC>::kMax]) {
+  float m = -INFINITY, z = 0.f;
+#pragma unroll
+  for (int c = 0; c < Cls<NC>::kMax; ++c) {
+    if (c < C) {
+      p[c] = __ldg(xp + c * stride) * inv_temp;
+      m = fmaxf(m, p[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < Cls<NC>::kMax; ++c) {
+    if (c < C) {
+      p[c] = expf(p[c] - m);
+      z += p[c];
+    }
+  }
+  const float rz = 1.f / z;
+#pragma unroll
+  for (int c = 0; c < Cls<NC>::kMax; ++c) {
+    if (c < C) p[c] *= rz;
+  }
 }
 
 // Max of key over the lanes of this warp that share the segment s: after
@@ -86,51 +162,104 @@ __device__ __forceinline__ u64 run_max(u64 key, int s, int lane) {
   return key;
 }
 
-__global__ void __launch_bounds__(THREADS) ssm_scatter_kernel(
-    const float* __restrict__ x, const int* __restrict__ sid,
-    u64* __restrict__ keys, int C, int HW, int S, float inv_temp) {
-  const unsigned full = 0xffffffffu;
-  const int b = blockIdx.y;
-  const int hw = blockIdx.x * THREADS + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const long long p = (long long)b * HW + hw;
-  int s = hw < HW ? sid[p] : S;
-  bool valid = s >= 0 && s < S;
-  if (!valid) s = -1;
-  if (__ballot_sync(full, valid) == 0) return;  // warp-uniform exit
+constexpr int span_smem_bytes(int C) {
+  return NSLOT * C * 8 + NSLOT * 4 + WARPS * 32 * 4 + WARPS * C * STAGE * 4;
+}
 
-  const float* xp = x + (long long)b * C * HW + hw;
-  float e[MAXC];
-  float rz = 0.f;
-  if (valid) {
-    float m = -INFINITY, z = 0.f;
+// K3. Shared memory: NSLOT * C keys (slot-major), NSLOT tags, each warp's
+// 32 ids, and each warp's values as (C, STAGE) words.
+template <int NC>
+__global__ void __launch_bounds__(THREADS) ssm_span_kernel(
+    const float* __restrict__ x, const int* __restrict__ sid,
+    u64* __restrict__ keys, int C_, int HW, int S, float inv_temp) {
+  constexpr int K = Cls<NC>::kMax;
+  const int C = Cls<NC>::n(C_);
+  extern __shared__ u64 skeys[];
+  int* tags = reinterpret_cast<int*>(skeys + NSLOT * C);
+  int* sids = tags + NSLOT;
+  unsigned* stage = reinterpret_cast<unsigned*>(sids + WARPS * 32);
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  const int start = blockIdx.x * SPAN;
+  const int end = min(start + SPAN, HW);
+  for (int i = threadIdx.x; i < NSLOT * C; i += THREADS) skeys[i] = 0;
+  for (int i = threadIdx.x; i < NSLOT; i += THREADS) tags[i] = EMPTY;
+  __syncthreads();
+
+  const float* xb = x + (long long)b * C * HW;
+  const int* sb = sid + (long long)b * HW;
+  const unsigned pb = (unsigned)b * (unsigned)HW;  // P < 2^31
+  unsigned* st = stage + warp * C * STAGE;
+  int hw = start + threadIdx.x;
+  int s_next = hw < end ? __ldg(sb + hw) : S;
+  for (; hw - lane < end; hw += THREADS) {  // warp-uniform
+    int s = s_next;
+    s_next = hw + THREADS < end ? __ldg(sb + hw + THREADS) : S;
+    const bool valid = s >= 0 && s < S;
+    if (!__any_sync(full, valid)) continue;
+    if (!valid) s = -1;
+    float p[K];
+    if (valid) softmax_at<NC>(xb + hw, HW, C, inv_temp, p);
+
+    // raster runs: bit j of `starts` marks lane j as the first of a run;
+    // each valid run's first lane claims the run's slot
+    const unsigned w0 = pb + (unsigned)(hw - lane);
+    const int up = __shfl_up_sync(full, s, 1);
+    const unsigned starts = __ballot_sync(full, lane == 0 || up != s);
+    bool mine = false;
+    if (valid && ((starts >> lane) & 1u)) {
+      const int t = atomicCAS(&tags[s & (NSLOT - 1)], EMPTY, s);
+      mine = t == EMPTY || t == s;
+    }
+    const unsigned held = __ballot_sync(full, mine);
 #pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c < C) {
-        e[c] = xp[(long long)c * HW] * inv_temp;
-        m = fmaxf(m, e[c]);
+    for (int c = 0; c < K; ++c) {
+      if (c < C) st[c * STAGE + lane] = valid ? __float_as_uint(p[c]) : 0u;
+    }
+    sids[warp * 32 + lane] = s;
+    __syncwarp();
+    if (lane < C) {
+      // lane c walks class c over the warp's 32 pixels, 4 per load, and
+      // at the end of each valid run merges its max and first argmax
+      const uint4* row = reinterpret_cast<const uint4*>(st + lane * STAGE);
+      unsigned best = 0;
+      int arg = 0, first = 0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const uint4 v4 = row[q];
+        const unsigned v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int j = 4 * q + k;
+          if ((starts >> j) & 1u) {
+            best = v[k];
+            arg = first = j;
+          } else if (v[k] > best) {
+            best = v[k];
+            arg = j;
+          }
+          if (j == 31 || ((starts >> (j + 1)) & 1u)) {
+            const int sj = sids[warp * 32 + j];
+            if (sj >= 0) {
+              const u64 key =
+                  ((u64)best << 32) | (u64)(~(w0 + (unsigned)arg));
+              if ((held >> first) & 1u)
+                atomicMax(&skeys[(sj & (NSLOT - 1)) * C + lane], key);
+              else
+                atomicMax(&keys[(long long)sj * C + lane], key);
+            }
+          }
+        }
       }
     }
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c < C) {
-        e[c] = expf(e[c] - m);
-        z += e[c];
-      }
-    }
-    rz = 1.f / z;
+    __syncwarp();
   }
-  int prev = __shfl_up_sync(full, s, 1);
-  bool leader = valid && (lane == 0 || prev != s);
-  u64 lo = (u64)(~(unsigned)p);
-#pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    if (c < C) {
-      u64 key = 0;
-      if (valid) key = ((u64)__float_as_uint(e[c] * rz) << 32) | lo;
-      key = run_max(key, s, lane);
-      if (leader) atomicMax(&keys[(long long)s * C + c], key);
-    }
+  __syncthreads();
+  // a slot key is non-zero only where a segment claimed the slot
+  for (int i = threadIdx.x; i < NSLOT * C; i += THREADS) {
+    const u64 k = skeys[i];
+    if (k != 0) atomicMax(&keys[(long long)tags[i / C] * C + i % C], k);
   }
 }
 
@@ -198,66 +327,122 @@ __global__ void ssm_decode_kernel(const u64* __restrict__ keys,
   }
 }
 
-__global__ void ssm_bwd_scatter_kernel(const float* __restrict__ vals,
-                                       const int* __restrict__ pix,
-                                       const float* __restrict__ g,
-                                       float* __restrict__ dlm, int C,
-                                       long long HW, long long n, int P) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int q = pix[i];
-  float gi = g[i];
-  if (q < 0 || q >= P || gi == 0.f) return;
-  long long c = i % C;
-  long long b = q / HW, hw = q - b * HW;
-  dlm[(b * C + c) * HW + hw] = gi * vals[i];
+// The row pix[s, 0..C) of argmax pixels: 16-byte loads where C is a
+// compile-time multiple of 4 (the wrapper checks that pix is 16-byte
+// aligned), else one load per class.
+template <int NC>
+__device__ __forceinline__ void load_row(const int* __restrict__ row, int C,
+                                         int (&q)[Cls<NC>::kMax]) {
+  if constexpr (NC > 0 && NC % 4 == 0) {
+    const int4* r4 = reinterpret_cast<const int4*>(row);
+#pragma unroll
+    for (int i = 0; i < Cls<NC>::kMax / 4; ++i) {
+      const int4 v = __ldg(r4 + i);
+      q[4 * i] = v.x;
+      q[4 * i + 1] = v.y;
+      q[4 * i + 2] = v.z;
+      q[4 * i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < Cls<NC>::kMax; ++c) {
+      if (c < C) q[c] = __ldg(row + c);
+    }
+  }
 }
 
+// K4: grid (pixel blocks, B), one thread per pixel. dl is written once
+// and never read here, so its stores stream past the caches (st.global.cs).
+template <int NC>
 __global__ void __launch_bounds__(THREADS) ssm_bwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ dlm,
-    float* __restrict__ dl, int C, int HW, float inv_temp) {
+    const float* __restrict__ x, const int* __restrict__ sid,
+    const float* __restrict__ vals, const int* __restrict__ pix,
+    const float* __restrict__ g, float* __restrict__ dl, int C_, int HW,
+    int S, float inv_temp) {
+  constexpr int K = Cls<NC>::kMax;
+  const int C = Cls<NC>::n(C_);
   const int hw = blockIdx.x * THREADS + threadIdx.x;
   if (hw >= HW) return;
-  const long long base = (long long)blockIdx.y * C * HW + hw;
-  float d[MAXC];
+  const int b = blockIdx.y;
+  const int p = b * HW + hw;  // P < 2^31
+  const long long at = (long long)b * C * HW + hw;
+  const int s = __ldg(sid + p);
+  const bool valid = s >= 0 && s < S;
+  const long long row = valid ? (long long)s * C : 0;
+  unsigned hit = 0;
+  if (valid) {
+    int q[K];
+    load_row<NC>(pix + row, C, q);
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      if (c < C && q[c] == p) hit |= 1u << c;
+    }
+  }
+  float d[K];
   float w = 0.f;
   bool any = false;
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
+  for (int c = 0; c < K; ++c) {
     if (c < C) {
-      d[c] = dlm[base + (long long)c * HW];
+      d[c] = 0.f;
+      if ((hit >> c) & 1u) {
+        const float gc = __ldg(g + row + c);
+        if (gc != 0.f) d[c] = gc * __ldg(vals + row + c);
+      }
       w += d[c];
       any = any || d[c] != 0.f;
     }
   }
+  float* out = dl + at;
   if (!any) {
 #pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c < C) dl[base + (long long)c * HW] = 0.f;
+    for (int c = 0; c < K; ++c) {
+      if (c < C) __stcs(out + c * HW, 0.f);
     }
     return;
   }
-  float e[MAXC];
-  float m = -INFINITY, z = 0.f;
+  float pr[K];
+  softmax_at<NC>(x + at, HW, C, inv_temp, pr);
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    if (c < C) {
-      e[c] = x[base + (long long)c * HW] * inv_temp;
-      m = fmaxf(m, e[c]);
-    }
+  for (int c = 0; c < K; ++c) {
+    if (c < C) __stcs(out + c * HW, (d[c] - w * pr[c]) * inv_temp);
   }
-#pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    if (c < C) {
-      e[c] = expf(e[c] - m);
-      z += e[c];
-    }
+}
+
+template <int NC>
+int launch_span(const float* x, const int* sid, u64* keys, int B, int C,
+                int HW, int S, float inv_temp, cudaStream_t stream) {
+  const int smem = span_smem_bytes(C);
+  static int smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ssm_span_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = smem;
   }
-  const float rz = 1.f / z;
-#pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    if (c < C) dl[base + (long long)c * HW] = (d[c] - w * (e[c] * rz)) * inv_temp;
-  }
+  dim3 grid((HW + SPAN - 1) / SPAN, B);
+  ssm_span_kernel<NC><<<grid, THREADS, smem, stream>>>(x, sid, keys, C, HW,
+                                                        S, inv_temp);
+  return (int)cudaGetLastError();
+}
+
+template <int NC>
+int launch_bwd(const float* x, const int* sid, const float* vals,
+               const int* pix, const float* g, float* dl, int B, int C,
+               int HW, int S, float inv_temp, cudaStream_t stream) {
+  dim3 grid((HW + THREADS - 1) / THREADS, B);
+  ssm_bwd_kernel<NC><<<grid, THREADS, 0, stream>>>(x, sid, vals, pix, g, dl,
+                                                    C, HW, S, inv_temp);
+  return (int)cudaGetLastError();
+}
+
+int launch_decode(const u64* keys, float* vals, int* pix, int S, int C,
+                  int P, cudaStream_t stream) {
+  long long n = (long long)S * C;
+  ssm_decode_kernel<<<(int)((n + THREADS - 1) / THREADS), THREADS, 0,
+                      stream>>>(keys, vals, pix, n, P);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -265,15 +450,13 @@ __global__ void __launch_bounds__(THREADS) ssm_bwd_kernel(
 extern "C" int ssm_fwd(const float* x, const int* sid, u64* keys, float* vals,
                        int* pix, int B, int C, int HW, int S, float inv_temp,
                        cudaStream_t stream) {
-  dim3 grid((HW + THREADS - 1) / THREADS, B);
-  ssm_scatter_kernel<<<grid, THREADS, 0, stream>>>(x, sid, keys, C, HW, S,
-                                                   inv_temp);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  long long n = (long long)S * C;
-  ssm_decode_kernel<<<(int)((n + THREADS - 1) / THREADS), THREADS, 0,
-                      stream>>>(keys, vals, pix, n, B * HW);
-  return (int)cudaGetLastError();
+  if (HW > 0) {
+    const int err =
+        C == 20 ? launch_span<20>(x, sid, keys, B, C, HW, S, inv_temp, stream)
+                : launch_span<0>(x, sid, keys, B, C, HW, S, inv_temp, stream);
+    if (err != 0) return err;
+  }
+  return launch_decode(keys, vals, pix, S, C, B * HW, stream);
 }
 
 extern "C" int ssm_rows_fwd(const float* x, const int* sid, u64* keys,
@@ -286,21 +469,16 @@ extern "C" int ssm_rows_fwd(const float* x, const int* sid, u64* keys,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  long long n = (long long)S * C;
-  ssm_decode_kernel<<<(int)((n + THREADS - 1) / THREADS), THREADS, 0,
-                      stream>>>(keys, vals, pix, n, P);
-  return (int)cudaGetLastError();
+  return launch_decode(keys, vals, pix, S, C, P, stream);
 }
 
-extern "C" int ssm_bwd(const float* x, const float* vals, const int* pix,
-                       const float* g, float* dlm, float* dl, int B, int C,
-                       int HW, int S, float inv_temp, cudaStream_t stream) {
-  long long n = (long long)S * C;
-  ssm_bwd_scatter_kernel<<<(int)((n + THREADS - 1) / THREADS), THREADS, 0,
-                           stream>>>(vals, pix, g, dlm, C, HW, n, B * HW);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((HW + THREADS - 1) / THREADS, B);
-  ssm_bwd_kernel<<<grid, THREADS, 0, stream>>>(x, dlm, dl, C, HW, inv_temp);
-  return (int)cudaGetLastError();
+extern "C" int ssm_bwd(const float* x, const int* sid, const float* vals,
+                       const int* pix, const float* g, float* dl, int B,
+                       int C, int HW, int S, float inv_temp,
+                       cudaStream_t stream) {
+  if (HW == 0) return 0;
+  return C == 20 ? launch_bwd<20>(x, sid, vals, pix, g, dl, B, C, HW, S,
+                                  inv_temp, stream)
+                 : launch_bwd<0>(x, sid, vals, pix, g, dl, B, C, HW, S,
+                                 inv_temp, stream);
 }

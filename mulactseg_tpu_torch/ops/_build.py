@@ -5,8 +5,9 @@ Each csrc/<name>.cu is compiled on first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
 
-into mulactseg_tpu_torch/_build/ (git-ignored) as <name>-<hash>.so, where
-the hash covers the source and the flags, and loaded with ctypes. Every C
+plus the source's -D constants (DEFINES), into mulactseg_tpu_torch/_build/
+(git-ignored) as <name>-<hash>.so, where the hash covers the source and
+the flags, and loaded with ctypes. Every C
 entry point returns cudaGetLastError(); `check` raises on a non-zero code.
 `build_all` starts one nvcc per source at once, so a cold start costs the
 slowest file's compile rather than the sum.
@@ -32,12 +33,23 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# Compile-time constants of a source that Python needs as well, passed as
+# -D<name>=<value> and set by the source's wrapper module (segment.py sets
+# K3's span and slot count for csrc/segment.cu).
+DEFINES: Dict[str, Dict[str, int]] = {}
+
 LAUNCHES: Counter = Counter()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def flags(name: str) -> tuple:
+    """nvcc's flags for csrc/<name>.cu: NVCC_FLAGS and its -D constants."""
+    return NVCC_FLAGS + tuple(f"-D{k}={v}"
+                              for k, v in DEFINES.get(name, {}).items())
 
 
 def _nvcc() -> str:
@@ -51,7 +63,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 
 
@@ -65,7 +77,7 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+        cmd = [_nvcc(), *flags(name), "-Xptxas", "-v", "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

@@ -9,7 +9,8 @@ differentiable through the max values. Kernels, all in csrc/:
 - K3 (segment.cu ssm_fwd): the NCHW forward at S + 1 <= 9216.
 - K6 (prereduce.cu, prereduce_softmax_nchw) then K5 (segment_max.cu): the
   NCHW forward past that, with bf16-rounded values as the reference has.
-- K4 (segment.cu ssm_bwd): the NCHW backward of both.
+- K4 (segment.cu ssm_bwd): the NCHW backward of both, a gather by the
+  segment ids the forward saw.
 - K7 (segment.cu ssm_rows_fwd): the row forward.
 - K8 (prereduce.cu, prereduce_softmax_rows) then K5: the row forward with
   prereduce=True. The row backward is plain PyTorch, as it is plain XLA
@@ -22,6 +23,7 @@ take the kernels or raise.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -36,6 +38,11 @@ MAX_CLASSES = 32
 # guard decides which numbers the reference computes.
 SCATTER_MAX_SEGMENTS = 9216
 BLOCK = 4  # raster-block width of the pre-reduction (the reference's R)
+# K3's span of pixels per block and its shared-table slots: csrc/segment.cu
+# is built with them as SPAN and NSLOT; the card tests build ids around them.
+K3_SPAN = 512
+K3_SLOTS = 64
+_build.DEFINES["segment"] = {"SPAN": K3_SPAN, "NSLOT": K3_SLOTS}
 
 
 def _softmax(xc, temp):
@@ -116,14 +123,16 @@ def _check(x, sid, num_segments):
         raise ValueError(f"at most {MAX_CLASSES} classes, got {x.shape[1]}")
     if sid.device != x.device:
         raise ValueError("logits and sid on different devices")
-    if sid.numel() >= 2 ** 31 - 1 or num_segments < 1:
-        raise ValueError("pixel count must fit int32 and S >= 1")
+    if sid.numel() >= 2 ** 31 - 1 or math.prod(x.shape[1:]) >= 2 ** 31 \
+            or num_segments < 1:
+        raise ValueError("pixel count and one image's logits must fit "
+                         "int32, and S >= 1")
 
 
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 # ssm_fwd(x, sid, keys, vals, pix, B, C, HW, S, 1/T, stream);
-# ssm_bwd(x, vals, pix, g, dlm, dl, B, C, HW, S, 1/T, stream);
+# ssm_bwd(x, sid, vals, pix, g, dl, B, C, HW, S, 1/T, stream);
 # ssm_rows_fwd(x, sid, keys, vals, pix, P, C, S, stream)
 _ARGTYPES = {"ssm_fwd": [_VP] * 5 + [_I] * 4 + [_F, _VP],
              "ssm_bwd": [_VP] * 6 + [_I] * 4 + [_F, _VP],
@@ -156,24 +165,34 @@ def ssm_fwd(xc, sid3, num_segments: int, temp: float):
     return vals, pix
 
 
-def ssm_bwd(xc, vals, pix, g, temp: float):
-    """K4. g: (S, C) cotangent of the max values."""
+def ssm_bwd(xc, sid3, vals, pix, g, temp: float):
+    """K4: xc (B, C, HW) float32 logits, sid3 (B, 1, HW) int32 ids that
+    the forward saw, (vals, pix) the forward's (S, C) outputs and g (S, C)
+    the cotangent of the max values -> dl (B, C, HW). CPU tensors take the
+    plain version; CUDA tensors the kernel.
+
+    Precondition of the kernel: every live entry's pixel lies in its own
+    segment, sid3[pix[s, c]] == s wherever pix[s, c] < B * HW. Both
+    forward branches (ssm_fwd and _ssm_prereduced) guarantee it; the
+    kernel gathers each pixel's coefficients from the row of its own
+    segment, so an entry that broke it would be dropped. ssm_bwd_plain
+    holds on any input."""
     if xc.device.type == "cpu":
         return ssm_bwd_plain(xc, vals, pix, g, temp)
-    B, C, HW = xc.shape
     S = vals.shape[0]
-    if xc.dtype != torch.float32 or not xc.is_contiguous():
-        raise TypeError("want contiguous float32 logits")
+    _check(xc, sid3, S)
+    B, C, HW = xc.shape
     for name, t, dt in (("vals", vals, torch.float32),
                         ("pix", pix, torch.int32), ("g", g, torch.float32)):
         if t.shape != (S, C) or t.dtype != dt or t.device != xc.device \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous ({S}, {C}) {dt} "
                              "tensor on the logits' device")
-    dlm = torch.zeros_like(xc)
+    if pix.data_ptr() % 16:  # the kernel reads its rows 16 bytes at a time
+        raise ValueError("pix must be 16-byte aligned")
     dl = torch.empty_like(xc)
-    code = _lib().ssm_bwd(xc.data_ptr(), vals.data_ptr(), pix.data_ptr(),
-                          g.data_ptr(), dlm.data_ptr(), dl.data_ptr(), B, C,
+    code = _lib().ssm_bwd(xc.data_ptr(), sid3.data_ptr(), vals.data_ptr(),
+                          pix.data_ptr(), g.data_ptr(), dl.data_ptr(), B, C,
                           HW, S, 1.0 / temp, _build.stream_ptr(xc.device))
     _build.check(code, "ssm_bwd")
     _build.LAUNCHES["ssm_bwd"] += 1
@@ -253,7 +272,7 @@ class _SegmentSoftmaxMax(torch.autograd.Function):
     def forward(ctx, xc, sid3, num_segments, temp, prereduce):
         fwd = _ssm_prereduced if prereduce else ssm_fwd
         vals, pix = fwd(xc, sid3, num_segments, temp)
-        ctx.save_for_backward(xc, vals, pix)
+        ctx.save_for_backward(xc, sid3, vals, pix)
         ctx.temp = temp
         ctx.mark_non_differentiable(pix)
         return vals, pix
@@ -262,8 +281,9 @@ class _SegmentSoftmaxMax(torch.autograd.Function):
     def backward(ctx, gvals, _gpix):
         """K4 in both branches; after the pre-reduction p_c is the
         bf16-rounded max, as in the reference (ops/segment.py:781-820)."""
-        xc, vals, pix = ctx.saved_tensors
-        dl = ssm_bwd(xc, vals, pix, gvals.float().contiguous(), ctx.temp)
+        xc, sid3, vals, pix = ctx.saved_tensors
+        dl = ssm_bwd(xc, sid3, vals, pix, gvals.float().contiguous(),
+                     ctx.temp)
         return dl, None, None, None, None
 
 

@@ -15,7 +15,11 @@ max within 1e-6 (the kernel multiplies by 1/z where the plain version
 divides, so probabilities one ulp apart may order differently). K4 is fed
 random cotangents, so dl = (dlm - w p) / T can cancel far below its
 operands: its error is held to 8 float32 ulps (8 * 2**-23) of the largest
-operand (|dlm| + |w| p) / T. K5 (segment max of arbitrary values) is
+operand (|dlm| + |w| p) / T, on K3's outputs and on the pre-reduced
+term's. K3's cases reach around its spans and shared slots
+(segment.K3_SPAN, K3_SLOTS): ids colliding in a slot, more segments in a
+span than slots, one segment per image, an exact tie across a span border
+and ragged last spans. K5 (segment max of arbitrary values) is
 exact: both outputs equal the plain version's (-0.0 counts as +0.0 on
 both sides). K6 and K8 write bf16-rounded values: within one bf16 ulp
 (2**-7 of the larger; the exps may differ by a float32 ulp, which can move
@@ -91,17 +95,76 @@ def _segments(rng, B, C, HW, nseg, underflow):
     return x, sid.reshape(B, 1, HW).astype(np.int32), S
 
 
-@pytest.mark.parametrize("underflow", [False, True])
-@pytest.mark.parametrize("B,C,HW", [(2, 20, 33 * 31), (3, 7, 4096)])
-def test_segment_kernels_match_plain(dev, B, C, HW, underflow):
+SPAN, NSLOT = segment.K3_SPAN, segment.K3_SLOTS
+
+
+def _segments_of(kind, rng, B, C, HW, underflow):
+    """(logits, sid3, S) for K3's cases around its spans and slots:
+    runs   runs of 16 pixels over 9 segments a image (_segments);
+    collide  runs of 4 whose ids are equal modulo NSLOT in groups of 8, so
+           most runs of a span find their slot held by another id; 20% of
+           runs invalid;
+    distinct every valid pixel its own id, S = min(HW, 9215) of them, so a
+           span holds more segments than slots;
+    whole  one segment per image;
+    ties   runs of 16, plus one segment per image across the first span
+           border whose class-0 maximum (probability 1.0) is tied exactly
+           between the last pixel of one span and the first of the next.
+    """
+    if kind == "runs":
+        return _segments(rng, B, C, HW, 9, underflow)
+    x = rng.randn(B, C, HW).astype(np.float32)
+    if underflow:
+        x[:, 0] -= 40.0
+    if kind == "collide":
+        S = 8 * NSLOT
+        r = np.arange(-(-HW // 4))
+        local = np.repeat((r * NSLOT + r // 8) % S, 4)[:HW]
+        local = np.where(np.repeat(rng.rand(B, r.size) < 0.2, 4, axis=1)
+                         [:, :HW], S, local)
+        sid = local  # one id space for all images
+    elif kind == "distinct":
+        S = min(B * HW, 9215)
+        sid = np.full(B * HW, S)
+        sid[np.sort(rng.choice(B * HW, S, replace=False))] = np.arange(S)
+        sid = sid.reshape(B, HW)
+    elif kind == "whole":
+        S = B
+        sid = np.repeat(np.arange(B)[:, None], HW, axis=1)
+    else:  # ties
+        x, sid, S = _segments(rng, B, C, HW, 9, False)
+        sid = sid.reshape(B, HW)
+        # local id 3 is absent elsewhere; class 0 is low on the segment but
+        # for the tied pair
+        sid[:, SPAN - 40:SPAN + 40] = (np.arange(B) * 9 + 3)[:, None]
+        x[:, 0, SPAN - 40:SPAN + 40] = -10.0
+        x[:, 0, SPAN - 1] = 50.0
+        x[:, :, SPAN] = x[:, :, SPAN - 1]
+    return x, sid.reshape(B, 1, HW).astype(np.int32), S
+
+
+@pytest.mark.parametrize("kind,B,C,HW,underflow", [
+    ("runs", 2, 20, 33 * 31, False), ("runs", 2, 20, 33 * 31, True),
+    ("runs", 3, 7, 4096, False), ("runs", 3, 7, 4096, True),
+    ("collide", 2, 20, 2 * SPAN + 100, False),
+    ("distinct", 1, 20, 2 * SPAN + 5, False),
+    ("whole", 2, 7, SPAN + 333, False), ("whole", 2, 20, SPAN + 333, True),
+    ("ties", 2, 20, 2 * SPAN, False)])
+def test_segment_kernels_match_plain(dev, kind, B, C, HW, underflow):
+    """K3 against its plain version, then K4 on K3's outputs (which meet
+    K4's precondition) against the dense plain backward. HW is ragged
+    (not a multiple of SPAN) in the collide, distinct and whole cases."""
     rng = np.random.RandomState(HW + C)
-    x, sid3, S = _segments(rng, B, C, HW, 9, underflow)
+    x, sid3, S = _segments_of(kind, rng, B, C, HW, underflow)
     x, sid3 = torch.from_numpy(x).to(dev), torch.from_numpy(sid3).to(dev)
     P = B * HW
+    _build.reset_launches()
     vals, pix = segment.ssm_fwd(x, sid3, S, 0.1)
     pvals, ppix = segment.ssm_fwd_plain(x, sid3, S, 0.1)
     absent = pix == P
-    assert torch.equal(absent, ppix == P) and absent.any()
+    assert torch.equal(absent, ppix == P) and (~absent).any()
+    # every id is present in the whole and distinct cases
+    assert bool(absent.any()) == (kind in ("runs", "collide", "ties"))
     assert (vals[absent] == 0).all()
     assert (vals - pvals).abs().max() <= 1e-6
     probs = segment._softmax(x, 0.1)
@@ -109,17 +172,27 @@ def test_segment_kernels_match_plain(dev, B, C, HW, underflow):
     cls = torch.arange(C, device=dev).expand(S, C)[~absent]
     assert (probs[q // HW, cls, q % HW] - pvals[~absent]).abs().max() <= 1e-6
     # every segment with a valid pixel records one for every class, the
-    # underflowed class (probability exactly 0.0) included
+    # underflowed class (probability exactly 0.0) included, inside itself
     seg_present = torch.zeros(S, dtype=torch.bool, device=dev)
     seg_present[sid3[sid3 < S].long()] = True
     assert torch.equal(~absent, seg_present[:, None].expand(S, C))
+    seg = torch.arange(S, device=dev)[:, None].expand(S, C)[~absent]
+    assert torch.equal(sid3.reshape(P)[q].long(), seg)
     if underflow:
         assert (vals[:, 0] == 0).all()
+    if kind == "ties":
+        # the tie across the span border goes to the earlier pixel
+        tied = torch.arange(B, device=dev) * 9 + 3
+        assert (vals[tied, 0] == 1.0).all()
+        assert torch.equal(pix[tied, 0].long(),
+                           torch.arange(B, device=dev) * HW + SPAN - 1)
 
     g = torch.from_numpy(rng.randn(S, C).astype(np.float32)).to(dev)
-    g[0] = 0.0
-    dl = segment.ssm_bwd(x, vals, pix, g, 0.1)
+    g[0] = 0.0  # a row of zero cotangents
+    g[-1, :C // 2] = 0.0  # and a row with some
+    dl = segment.ssm_bwd(x, sid3, vals, pix, g, 0.1)
     want = segment.ssm_bwd_plain(x, vals, pix, g, 0.1)
+    assert dict(_build.LAUNCHES) == {"ssm_fwd": 1, "ssm_bwd": 1}
     live = (pix < P) & (g != 0)
     dlm = torch.zeros(B, C, HW, device=dev)
     dlm[q // HW, cls, q % HW] = (g * vals)[~absent]
@@ -239,6 +312,19 @@ def test_prereduce_nchw_kernel_matches_plain(dev, B, C, HW):
     vals, pix = segment._ssm_prereduced(x, sid3, S, 0.1)
     assert dict(_build.LAUNCHES) == {"prereduce_nchw": 2, "seg_max_fwd": 1}
     P = B * HW
+    # K4 on the pre-reduced outputs, against the dense plain backward
+    g = torch.from_numpy(rng.randn(S, C).astype(np.float32)).to(dev)
+    dl = segment.ssm_bwd(x, sid3, vals, pix, g, 0.1)
+    want_dl = segment.ssm_bwd_plain(x, vals, pix, g, 0.1)
+    live = pix < P
+    dlm = torch.zeros(B, C, HW, device=dev)
+    ql = pix[live].long()
+    dlm[ql // HW, torch.arange(C, device=dev).expand(S, C)[live],
+        ql % HW] = (g * vals)[live]
+    operand = ((dlm.abs() + dlm.sum(dim=1, keepdim=True).abs()
+                * segment._softmax(x, 0.1)) / 0.1).max()
+    assert operand > 0
+    assert (dl - want_dl).abs().max() <= 8 * 2.0 ** -23 * operand
     absent = pix == P
     pvals, ppix = segment.ssm_fwd_plain(x, sid3, S, 0.1)
     assert torch.equal(absent, ppix == P) and absent.any()

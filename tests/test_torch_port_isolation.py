@@ -117,7 +117,7 @@ def test_non_cpu_tensors_take_the_kernel_path(monkeypatch):
     calls = [lambda: pixel_loss.pixel_ce_fwd(x, bits, 0.1),
              lambda: pixel_loss.pixel_ce_bwd(x, bits, g2, 0.1),
              lambda: segment.ssm_fwd(x, bits, 8, 0.1),
-             lambda: segment.ssm_bwd(x, vals, pix, vals, 0.1),
+             lambda: segment.ssm_bwd(x, bits, vals, pix, vals, 0.1),
              lambda: segment_max.seg_max_fwd(planes, sid, 8),
              lambda: segment_max.segment_max_grad(planes, sid, 8),
              lambda: segment.prereduce_softmax_nchw(x, bits, 8, 0.1),

@@ -151,16 +151,24 @@ def test_segment_bwd_matches_pallas_interpret():
     temp = 0.1
     S = 32
     x = rng.randn(B, C, HW).astype(np.float32)
-    # sparse entries: distinct argmax pixels per class, some absent/zero
+    # raster runs of 16 pixels over S segments, 10% of runs invalid
+    sid = np.repeat(rng.randint(0, S, P // 16), 16)
+    sid[np.repeat(rng.rand(P // 16) < 0.1, 16)] = S
+    # sparse entries: each argmax pixel inside its own segment (the
+    # kernel's precondition), some absent/zero
     pix = np.full((S, C), P, np.int32)
-    for c in range(C):
-        pix[:, c] = rng.choice(P, S, replace=False)
+    for s in range(S):
+        members = np.nonzero(sid == s)[0]
+        if members.size:
+            pix[s] = rng.choice(members, C)
     pix[rng.rand(S, C) < 0.2] = P
+    assert (pix < P).sum() > S * C // 2
     vals = rng.rand(S, C).astype(np.float32)
     g = rng.randn(S, C).astype(np.float32)
     g[rng.rand(S, C) < 0.2] = 0.0
 
-    got = segment.ssm_bwd(torch.from_numpy(x), torch.from_numpy(vals),
+    sid3 = torch.from_numpy(sid.astype(np.int32).reshape(B, 1, HW))
+    got = segment.ssm_bwd(torch.from_numpy(x), sid3, torch.from_numpy(vals),
                           torch.from_numpy(pix), torch.from_numpy(g),
                           temp).numpy()
 
