@@ -15,7 +15,10 @@
    at those shapes (nseg 2048), on logits from a forward pass of the model,
    and times both with CUDA events (windows of 5 back-to-back calls, the
    kernels as CUDA graph replays, median of 20 windows); K4 is also timed
-   beside the library's softmax backward. K3 is held as well on
+   beside the library's softmax backward. K1 must give the same bits on a
+   second call, and K1 and K2 are also held and timed on their 4-byte
+   path (the logits one float into a larger storage, so not 16-byte
+   aligned). K3 is held as well on
    adversarial ids at full size (one id per run of 4 pixels, ids equal
    modulo its shared slot count, more segments in a span than slots).
    Before K4 runs, every live argmax pixel must lie in its own segment
@@ -70,8 +73,8 @@
    sim_bf16 off: K5's outputs equal, the maps agree on >= 99.5% of pixels
    (the matmuls sum in another order, so near-ties may flip).
 13. Profiles 1 + 3 stage-1 steps at each nseg with torch.profiler: the
-   device time per step by kind of kernel, the top kernels and the
-   device's idle share. Every timed run comes before these passes.
+   device time per step by kind of kernel and of each loss kernel, the
+   top kernels and the device's idle share. Every timed run comes before these passes.
 
 Prints, before the last line, the slices' numbers and one JSON line with
 each kernel's check and times, its launches on each main path
@@ -351,14 +354,27 @@ def kernel_checks(logits, batch, dev):
     row_bytes = C * 4
     rows = []
 
-    # K1
+    # K1, bitwise the same on a second call, and K1 and K2 on the 4-byte
+    # path too: the logits one float into a larger storage (HW % 4 == 0,
+    # but not 16-byte aligned)
+    store = torch.empty(xc.numel() + 1, device=dev)
+    store[1:] = xc.reshape(-1)
+    xu = store[1:].view(B, C, HW)
+    check(pixel_loss.instance(xc, bits3) == (C, True)
+          and pixel_loss.instance(xu, bits3) == (C, False),
+          "K1/K2 instances: want the C = 20 one, 16-byte path on the "
+          "model's logits, 4-byte path on the shifted copy")
     got = pixel_loss.pixel_ce_fwd(xc, bits3, temp)
     want = pixel_loss.pixel_ce_fwd_plain(xc, bits3, temp)
+    got_u = pixel_loss.pixel_ce_fwd(xu, bits3, temp)
     torch.cuda.synchronize()
-    check(torch.equal(got[1::2], want[1::2]),
-          f"K1 counts differ: {got.tolist()} vs {want.tolist()}")
-    check(torch.allclose(got[0::2], want[0::2], rtol=1e-5, atol=0),
-          f"K1 sums differ: {got.tolist()} vs {want.tolist()}")
+    for what, k1 in (("K1", got), ("K1 on the 4-byte path", got_u)):
+        check(torch.equal(k1[1::2], want[1::2]),
+              f"{what} counts differ: {k1.tolist()} vs {want.tolist()}")
+        check(torch.allclose(k1[0::2], want[0::2], rtol=1e-5, atol=0),
+              f"{what} sums differ: {k1.tolist()} vs {want.tolist()}")
+    check(torch.equal(pixel_loss.pixel_ce_fwd(xc, bits3, temp), got),
+          "K1 is not bitwise reproducible")
     rows.append(("pixel_ce_fwd", (got - want).abs().max().item(),
                  time_ms(lambda: pixel_loss.pixel_ce_fwd(xc, bits3, temp),
                          graph=True),
@@ -370,14 +386,26 @@ def kernel_checks(logits, batch, dev):
     # K2, with the cotangents the loss gives (coeff / (1 + count))
     g = torch.stack([16.0 / (1.0 + want[1]), 8.0 / (1.0 + want[3])]
                     ).float().contiguous()
-    got = pixel_loss.pixel_ce_bwd(xc, bits3, g, temp)
     want_dl = pixel_loss.pixel_ce_bwd_plain(xc, bits3, g, temp)
-    torch.cuda.synchronize()
-    err = (got - want_dl).abs().max().item()
     scale = want_dl.abs().max().item()
-    check(scale > 0 and err <= 1e-6 * scale,
-          f"K2 dl differs: max abs err {err} vs max |dl| {scale}")
-    del got
+    errs = []
+    for what, x_in in (("K2", xc), ("K2 on the 4-byte path", xu)):
+        got = pixel_loss.pixel_ce_bwd(x_in, bits3, g, temp)
+        torch.cuda.synchronize()
+        errs.append((got - want_dl).abs().max().item())
+        check(scale > 0 and errs[-1] <= 1e-6 * scale,
+              f"{what} dl differs: max abs err {errs[-1]} vs max |dl| "
+              f"{scale}")
+        del got
+    err = errs[0]
+    print(json.dumps({"pixel_loss_4byte_path": {
+        "K1_ms": time_ms(lambda: pixel_loss.pixel_ce_fwd(xu, bits3, temp),
+                         graph=True),
+        "K2_ms": time_ms(lambda: pixel_loss.pixel_ce_bwd(xu, bits3, g,
+                                                         temp), graph=True),
+        "K1_max_abs_err": (got_u - want).abs().max().item(),
+        "K2_max_abs_err": errs[1]}}), flush=True)
+    del store, xu
     rows.append(("pixel_ce_bwd", err,
                  time_ms(lambda: pixel_loss.pixel_ce_bwd(xc, bits3, g, temp),
                          graph=True),
@@ -880,13 +908,17 @@ def profile_steps(step, batches, label, n=3, top=25):
         kind = next((k for k, keys in kinds.items()
                      if any(key in name for key in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + t
+    loss_keys = kinds["loss kernels (K1-K10)"]
     print(json.dumps({"profile": {
         "slice": label, "steps": n, "device_spans_per_step": len(spans) / n,
         "window_ms_per_step": window / n / 1e3,
         "device_busy_ms_per_step": busy / n / 1e3,
         "idle_share": 1.0 - busy / window,
         "kind_ms_per_step": {k: v / n / 1e3 for k, v in sorted(
-            by_kind.items(), key=lambda kv: -kv[1])}}}))
+            by_kind.items(), key=lambda kv: -kv[1])},
+        "loss_kernel_ms_per_step": {
+            name[:110]: t / n / 1e3 for name, t in by_name.items()
+            if any(key in name for key in loss_keys)}}}))
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {t / n / 1e3:9.3f} ms/step  {name[:110]}")
 
@@ -1125,8 +1157,9 @@ def main():
     from mulactseg_tpu_torch.engine.train import make_train_step
     from mulactseg_tpu_torch.models import convert
     from mulactseg_tpu_torch.models.factory import get_model
-    # segment sets csrc/segment.cu's -D constants before the build
-    from mulactseg_tpu_torch.ops import _build, segment  # noqa: F401
+    # pixel_loss and segment set their sources' -D constants before the
+    # build
+    from mulactseg_tpu_torch.ops import _build, pixel_loss, segment  # noqa: F401
 
     dev = torch.device("cuda")
     smi = subprocess.run(

@@ -4,14 +4,16 @@ mulactseg_tpu/ops/pixel_loss_pallas.py's pixel_partial_ce_nchw over
 
 Forward (K1, csrc/pixel_loss.cu pixel_ce_fwd; K9, pixel_ce_rows_fwd for
 rows) returns a (4,) float32 tensor (oh_nll_sum, oh_count, mh_nll_sum,
-mh_count); the backward (K2, pixel_ce_bwd; K10, pixel_ce_rows_bwd)
-recomputes the softmax from the inputs. Tensors on the CPU take the plain
-PyTorch versions below; CUDA tensors take the kernels or raise.
+mh_count), in one launch and bitwise reproducible; the backward (K2,
+pixel_ce_bwd; K10, pixel_ce_rows_bwd) recomputes the softmax from the
+inputs. Tensors on the CPU take the plain PyTorch versions below; CUDA
+tensors take the kernels or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -19,7 +21,13 @@ from mulactseg_tpu_torch.ops import _build
 
 EPS = 1e-8
 MAX_CLASSES = 31  # candidate bitmasks are int32
-_THREADS = 256  # K1: one block of partial sums per 256 pixels of an image
+# Pixels per block of every kernel here (4 per thread): csrc/pixel_loss.cu
+# is built with it as PIXELS, and K1's partials are sized by it.
+PIXELS_PER_BLOCK = 512
+_build.DEFINES["pixel_loss"] = {"PIXELS": PIXELS_PER_BLOCK}
+# The class count compiled into the kernels (the stage-1 model's 19
+# classes plus "undefined"); any other C takes the run-time instance.
+COMPILED_CLASSES = 20
 
 
 def _softmax_pos(xc, bits3, temp):
@@ -68,6 +76,10 @@ def _check(x, bits):
         raise ValueError(f"at most {MAX_CLASSES} classes, got {x.shape[1]}")
     if bits.device != x.device:
         raise ValueError("logits and bits on different devices")
+    # the kernels index one image's logits (or all rows) with int32
+    if math.prod(x.shape[1:] if x.dim() == 3 else x.shape) >= 2 ** 31:
+        raise ValueError("one image's logits must have fewer than 2**31 "
+                         "elements")
 
 
 def _check_g(g, x):
@@ -77,13 +89,52 @@ def _check_g(g, x):
                          "logits' device")
 
 
+def num_blocks(B: int, HW: int) -> int:
+    """Blocks of a (B, C, HW) launch: each covers PIXELS_PER_BLOCK pixels
+    of one image, and K1 writes one partial (4 floats) per block."""
+    return B * -(-HW // PIXELS_PER_BLOCK)
+
+
+def compiled_classes(C: int) -> int:
+    """The kernels' class-count instance for C classes: C where it is
+    COMPILED_CLASSES, else 0 (C at run time)."""
+    return C if C == COMPILED_CLASSES else 0
+
+
+def instance(xc, bits3):
+    """(nc, vec): the kernel instance for (B, C, HW) logits. vec is True
+    where each thread can read its 4 pixels as one 16-byte copy per
+    class: HW % 4 == 0 and logits and bits 16-byte aligned (dl, which the
+    wrapper allocates, always is)."""
+    HW = xc.shape[2]
+    return compiled_classes(xc.shape[1]), HW % 4 == 0 \
+        and xc.data_ptr() % 16 == 0 and bits3.data_ptr() % 16 == 0
+
+
+_TICKETS: dict = {}
+
+
+def _ticket(device):
+    """K1's and K9's ticket counter on this device: zeroed once here, then
+    reset by the last block of every launch. Launches on one device take
+    it in stream order, so two forwards must not run at once on two
+    streams of one device."""
+    t = _TICKETS.get(device)
+    if t is None:
+        t = _TICKETS[device] = torch.zeros(1, dtype=torch.int32,
+                                           device=device)
+    return t
+
+
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (x, bits, partials | g, out | dl, B, C, HW, temp, stream);
-# the rows entry points take (..., N, C, temp, stream)
-_ARGTYPES = {"pixel_ce_fwd": [_VP] * 4 + [_I] * 3 + [_F, _VP],
-             "pixel_ce_bwd": [_VP] * 4 + [_I] * 3 + [_F, _VP],
-             "pixel_ce_rows_fwd": [_VP] * 4 + [_I] * 2 + [_F, _VP],
-             "pixel_ce_rows_bwd": [_VP] * 4 + [_I] * 2 + [_F, _VP]}
+# pixel_ce_fwd(x, bits, partials, ticket, out, B, C, HW, temp, nc, vec,
+#              stream); pixel_ce_bwd(x, bits, g, dl, B, C, HW, temp, nc,
+# vec, stream); the rows entry points take N, C in place of B, C, HW and
+# no vec
+_ARGTYPES = {"pixel_ce_fwd": [_VP] * 5 + [_I] * 3 + [_F] + [_I] * 2 + [_VP],
+             "pixel_ce_bwd": [_VP] * 4 + [_I] * 3 + [_F] + [_I] * 2 + [_VP],
+             "pixel_ce_rows_fwd": [_VP] * 5 + [_I] * 2 + [_F, _I, _VP],
+             "pixel_ce_rows_bwd": [_VP] * 4 + [_I] * 2 + [_F, _I, _VP]}
 
 
 def _lib():
@@ -95,12 +146,15 @@ def pixel_ce_fwd(xc, bits3, temp: float):
     if xc.device.type == "cpu":
         return pixel_ce_fwd_plain(xc, bits3, temp)
     _check(xc, bits3)
+    lib = _lib()
     B, C, HW = xc.shape
-    partials = torch.empty(-(-HW // _THREADS) * B * 4, device=xc.device)
+    partials = torch.empty(num_blocks(B, HW) * 4, device=xc.device)
     out = torch.empty(4, device=xc.device)
-    code = _lib().pixel_ce_fwd(xc.data_ptr(), bits3.data_ptr(),
-                               partials.data_ptr(), out.data_ptr(), B, C, HW,
-                               float(temp), _build.stream_ptr(xc.device))
+    code = lib.pixel_ce_fwd(xc.data_ptr(), bits3.data_ptr(),
+                            partials.data_ptr(), _ticket(xc.device).data_ptr(),
+                            out.data_ptr(), B, C, HW, float(temp),
+                            *instance(xc, bits3),
+                            _build.stream_ptr(xc.device))
     _build.check(code, "pixel_ce_fwd")
     _build.LAUNCHES["pixel_ce_fwd"] += 1
     return out
@@ -112,11 +166,13 @@ def pixel_ce_bwd(xc, bits3, g, temp: float):
         return pixel_ce_bwd_plain(xc, bits3, g, temp)
     _check(xc, bits3)
     _check_g(g, xc)
+    lib = _lib()
     B, C, HW = xc.shape
     dl = torch.empty_like(xc)
-    code = _lib().pixel_ce_bwd(xc.data_ptr(), bits3.data_ptr(), g.data_ptr(),
-                               dl.data_ptr(), B, C, HW, float(temp),
-                               _build.stream_ptr(xc.device))
+    code = lib.pixel_ce_bwd(xc.data_ptr(), bits3.data_ptr(), g.data_ptr(),
+                            dl.data_ptr(), B, C, HW, float(temp),
+                            *instance(xc, bits3),
+                            _build.stream_ptr(xc.device))
     _build.check(code, "pixel_ce_bwd")
     _build.LAUNCHES["pixel_ce_bwd"] += 1
     return dl
@@ -129,13 +185,16 @@ def pixel_ce_rows_fwd(x, bits, temp: float):
     if x.device.type == "cpu":
         return pixel_ce_fwd_plain(x.t()[None], bits[None, None], temp)
     _check(x, bits)
+    lib = _lib()
     N, C = x.shape
-    partials = torch.empty(-(-N // _THREADS) * 4, device=x.device)
+    partials = torch.empty(num_blocks(1, N) * 4, device=x.device)
     out = torch.empty(4, device=x.device)
-    code = _lib().pixel_ce_rows_fwd(x.data_ptr(), bits.data_ptr(),
-                                    partials.data_ptr(), out.data_ptr(), N,
-                                    C, float(temp),
-                                    _build.stream_ptr(x.device))
+    code = lib.pixel_ce_rows_fwd(x.data_ptr(), bits.data_ptr(),
+                                 partials.data_ptr(),
+                                 _ticket(x.device).data_ptr(), out.data_ptr(),
+                                 N, C, float(temp),
+                                 compiled_classes(C),
+                                 _build.stream_ptr(x.device))
     _build.check(code, "pixel_ce_rows_fwd")
     _build.LAUNCHES["pixel_ce_rows_fwd"] += 1
     return out
@@ -148,11 +207,13 @@ def pixel_ce_rows_bwd(x, bits, g, temp: float):
                                   temp)[0].t()
     _check(x, bits)
     _check_g(g, x)
+    lib = _lib()
     N, C = x.shape
     dl = torch.empty_like(x)
-    code = _lib().pixel_ce_rows_bwd(x.data_ptr(), bits.data_ptr(),
-                                    g.data_ptr(), dl.data_ptr(), N, C,
-                                    float(temp), _build.stream_ptr(x.device))
+    code = lib.pixel_ce_rows_bwd(x.data_ptr(), bits.data_ptr(), g.data_ptr(),
+                                 dl.data_ptr(), N, C, float(temp),
+                                 compiled_classes(C),
+                                 _build.stream_ptr(x.device))
     _build.check(code, "pixel_ce_rows_bwd")
     _build.LAUNCHES["pixel_ce_rows_bwd"] += 1
     return dl

@@ -1,0 +1,131 @@
+"""Times the pixel-loss kernels K1 (pixel_ce_fwd) and K2 (pixel_ce_bwd) at
+the stage-1 recipe's shapes on one GPU, on both input paths, for each
+pixels-per-block value asked for (ops/pixel_loss.PIXELS_PER_BLOCK,
+csrc/pixel_loss.cu's -DPIXELS; each built anew).
+
+    python3 mulactseg_tpu_torch/tools/pixel_loss_timing.py \
+        [--pixels 256 512 1024] [--root DIR]
+
+--root times the code of another checkout (its mulactseg_tpu_torch/ and
+chip_smoke.py), so that two versions can be compared in one session on
+one card; a checkout whose pixel_loss.cu takes no -D constant is timed
+as it builds, and --pixels is refused for it. The inputs are chip_smoke.py's
+synthetic stage-1 batch (B 4, C 20, 768x768, nseg 2048, 50% of
+superpixels selected, 15% of classes multi-hot), with logits 3 N(0, 1)
+from a seed. "aligned" takes the logits as allocated, "unaligned" a copy
+that starts one float into a larger storage, so that the 16-byte path
+cannot be taken. Each kernel is first held against its plain version
+(K1's counts exact and sums to rtol 1e-5, K2 within 1e-6 of max |dl|),
+then timed as chip_smoke.time_ms times it: the median of 20 windows of 5
+CUDA graph replays. On the aligned logits both are also timed with every
+pixel dead (K2 then only writes zeros) and every pixel live (every logit
+read), beside two yardsticks of the same 189 MB: zero_ (the write alone)
+and copy_ (a read and a write of every element). K9 and K10 are held and
+timed on the same data as (B HW, C) rows. Prints the card's name and
+power limit, then one JSON line per value, with the registers and spills
+of its C = 20 kernels where they were built anew.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--pixels", type=int, nargs="*", default=[])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    args = ap.parse_args()
+    sys.path.insert(0, args.root)
+    import torch
+
+    import chip_smoke as cs
+    from mulactseg_tpu_torch.ops import _build, pixel_loss
+
+    if not torch.cuda.is_available():
+        sys.exit("pixel_loss_timing.py needs a CUDA device")
+    defines = _build.DEFINES.get("pixel_loss")
+    if args.pixels and not defines:
+        sys.exit(f"{args.root}: pixel_loss.cu takes no -D constant")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+    B, C, HW = cs.B, cs.NUM_CLASSES, cs.H * cs.W
+    bits3, n_cand, _ = cs.stage1_ids(cs.make_batches(1, seed=0)[0], dev,
+                                     cs.NSEG)
+    gen = torch.Generator(dev).manual_seed(0)
+    x = torch.randn(B, C, HW, device=dev, generator=gen) * 3
+    store = torch.empty(B * C * HW + 1, device=dev)
+    store[1:] = x.reshape(-1)
+    paths = {"aligned": x, "unaligned": store[1:].view(B, C, HW)}
+    g = torch.tensor([0.5, 0.25], device=dev)
+
+    for pixels in args.pixels or [None]:
+        if pixels:
+            pixel_loss.PIXELS_PER_BLOCK = defines["PIXELS"] = pixels
+        _build._LIBS.pop("pixel_loss", None)
+        log = _build.build_all(["pixel_loss"]).get("pixel_loss", "")
+        row = {"root": args.root, "defines": dict(defines or {}),
+               "live_share": float((n_cand > 0).float().mean()),
+               "card": smi, "registers": [
+                   line for line in cs.ptxas_summary(log)
+                   if "<20" in line or not defines]}
+        for path, xp in paths.items():
+            got = pixel_loss.pixel_ce_fwd(xp, bits3, 0.1)
+            want = pixel_loss.pixel_ce_fwd_plain(xp, bits3, 0.1)
+            cs.check(torch.equal(got[1::2], want[1::2]) and torch.allclose(
+                got[0::2], want[0::2], rtol=1e-5, atol=0),
+                f"K1 ({path}) {got.tolist()} vs {want.tolist()}")
+            dl = pixel_loss.pixel_ce_bwd(xp, bits3, g, 0.1)
+            want_dl = pixel_loss.pixel_ce_bwd_plain(xp, bits3, g, 0.1)
+            err = (dl - want_dl).abs().max().item()
+            cs.check(err <= 1e-6 * want_dl.abs().max().item(),
+                     f"K2 ({path}) max abs err {err}")
+            del dl, want_dl
+            if defines:
+                row[f"instance_{path}"] = pixel_loss.instance(xp, bits3)
+            row[f"k1_ms_{path}"] = cs.time_ms(
+                lambda: pixel_loss.pixel_ce_fwd(xp, bits3, 0.1), graph=True)
+            row[f"k2_ms_{path}"] = cs.time_ms(
+                lambda: pixel_loss.pixel_ce_bwd(xp, bits3, g, 0.1),
+                graph=True)
+        for kind, b3 in (("dead", torch.zeros_like(bits3)),
+                         ("live", torch.ones_like(bits3))):
+            row[f"k1_ms_{kind}"] = cs.time_ms(
+                lambda: pixel_loss.pixel_ce_fwd(x, b3, 0.1), graph=True)
+            row[f"k2_ms_{kind}"] = cs.time_ms(
+                lambda: pixel_loss.pixel_ce_bwd(x, b3, g, 0.1), graph=True)
+        # K9 and K10 on the same logits and bitmasks as (B HW, C) rows
+        x2d = x.permute(0, 2, 1).reshape(-1, C).contiguous()
+        b1 = bits3.reshape(-1)
+        got = pixel_loss.pixel_ce_rows_fwd(x2d, b1, 0.1)
+        want = pixel_loss.pixel_ce_fwd_plain(x, bits3, 0.1)
+        cs.check(torch.equal(got[1::2], want[1::2]) and torch.allclose(
+            got[0::2], want[0::2], rtol=1e-5, atol=0),
+            f"K9 {got.tolist()} vs {want.tolist()}")
+        dl = pixel_loss.pixel_ce_rows_bwd(x2d, b1, g, 0.1)
+        want_dl = pixel_loss.pixel_ce_bwd_plain(x, bits3, g, 0.1)
+        err = (dl - want_dl.permute(0, 2, 1).reshape(-1, C)).abs().max()
+        cs.check(err.item() <= 1e-6 * want_dl.abs().max().item(),
+                 f"K10 max abs err {err.item()}")
+        del dl, want_dl
+        row["k9_ms"] = cs.time_ms(
+            lambda: pixel_loss.pixel_ce_rows_fwd(x2d, b1, 0.1), graph=True)
+        row["k10_ms"] = cs.time_ms(
+            lambda: pixel_loss.pixel_ce_rows_bwd(x2d, b1, g, 0.1),
+            graph=True)
+        del x2d
+        out = torch.empty_like(x)
+        row["zero_ms"] = cs.time_ms(lambda: out.zero_(), graph=True)
+        row["copy_ms"] = cs.time_ms(lambda: out.copy_(x), graph=True)
+        print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -63,22 +63,62 @@ def _bits(rng, B, C, HW):
         np.int32)
 
 
-@pytest.mark.parametrize("B,C,HW", [(2, 20, 33 * 31), (1, 3, 700),
-                                    (3, 31, 4096)])
-def test_pixel_ce_kernels_match_plain(dev, B, C, HW):
-    rng = np.random.RandomState(C)
-    x = torch.from_numpy((rng.randn(B, C, HW) * 3).astype(np.float32)).to(dev)
+@pytest.mark.parametrize("B,C,HW,offset", [
+    (2, 20, 33 * 31, 0), (1, 3, 700, 0), (3, 31, 4096, 0),
+    (2, 20, 4096, 0), (2, 20, 4097, 0), (1, 7, 4098, 0), (2, 20, 4099, 0),
+    (2, 20, 4096, 1), (1, 3, 700, 3)])
+def test_pixel_ce_kernels_match_plain(dev, B, C, HW, offset):
+    """K1 and K2 on both class instances (C = 20 compiled, others at run
+    time) and both layouts: 16-byte loads where HW % 4 == 0 and the
+    logits are aligned, 4-byte loads for HW % 4 in {1, 2, 3} and for
+    logits that are a contiguous slice `offset` floats into a larger
+    storage. K1 is bitwise reproducible and launches once however it
+    finishes its sums."""
+    rng = np.random.RandomState(C + HW + offset)
+    n = B * C * HW
+    store = torch.from_numpy((rng.randn(n + offset) * 3).astype(
+        np.float32)).to(dev)
+    x = store[offset:].view(B, C, HW)
+    assert x.is_contiguous()
     bits = torch.from_numpy(_bits(rng, B, C, HW)).to(dev)
+    nc, vec = pixel_loss.instance(x, bits)
+    assert nc == (20 if C == 20 else 0)
+    assert vec == (HW % 4 == 0 and offset % 4 == 0)
+    first = pixel_loss.pixel_ce_fwd(x, bits, 0.1)
     _build.reset_launches()
     got = pixel_loss.pixel_ce_fwd(x, bits, 0.1)
     want = pixel_loss.pixel_ce_fwd_plain(x, bits, 0.1)
+    assert torch.equal(got, first)
     assert torch.equal(got[1::2], want[1::2])
     torch.testing.assert_close(got[0::2], want[0::2], rtol=1e-5, atol=0)
     g = torch.tensor([2.0, 3.0], device=dev)
     dl = pixel_loss.pixel_ce_bwd(x, bits, g, 0.1)
     want_dl = pixel_loss.pixel_ce_bwd_plain(x, bits, g, 0.1)
     assert (dl - want_dl).abs().max() <= 1e-6 * want_dl.abs().max()
+    assert (dl[(bits == 0).expand(B, C, HW)] == 0).all()
     assert dict(_build.LAUNCHES) == {"pixel_ce_fwd": 1, "pixel_ce_bwd": 1}
+
+
+@pytest.mark.parametrize("live", [False, True])
+def test_pixel_ce_kernels_all_dead_or_all_live(dev, live):
+    """Every pixel without a candidate (K1 sums 0, K2 writes zeros only)
+    or every pixel with one, on the 16-byte path at C = 20."""
+    rng = np.random.RandomState(11 + live)
+    B, C, HW = 2, 20, 4096
+    x = torch.from_numpy((rng.randn(B, C, HW) * 3).astype(np.float32)).to(dev)
+    bits = _bits(rng, B, C, HW)
+    bits = np.where(bits == 0, 1, bits) if live else np.zeros_like(bits)
+    bits = torch.from_numpy(bits.astype(np.int32)).to(dev)
+    got = pixel_loss.pixel_ce_fwd(x, bits, 0.1)
+    want = pixel_loss.pixel_ce_fwd_plain(x, bits, 0.1)
+    assert torch.equal(got[1::2], want[1::2])
+    assert float(got[1] + got[3]) == (B * HW if live else 0)
+    torch.testing.assert_close(got[0::2], want[0::2], rtol=1e-5, atol=0)
+    g = torch.tensor([2.0, 3.0], device=dev)
+    dl = pixel_loss.pixel_ce_bwd(x, bits, g, 0.1)
+    want_dl = pixel_loss.pixel_ce_bwd_plain(x, bits, g, 0.1)
+    assert (dl - want_dl).abs().max() <= 1e-6 * want_dl.abs().max()
+    assert bool((dl != 0).any()) == live
 
 
 def _segments(rng, B, C, HW, nseg, underflow):

@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from mulactseg_tpu_torch.ops import _build, segment
+from mulactseg_tpu_torch.ops import _build, pixel_loss, segment
 from tests import test_torch_port_ops as ops_fixtures
 from tests import test_torch_port_prereduce as pre_fixtures
 
@@ -189,12 +189,15 @@ def test_span_and_slot_counts_reach_the_build(monkeypatch):
 
 
 def test_other_sources_build_without_defines(monkeypatch):
-    """The -D constants are segment.cu's alone: the other sources keep
-    the plain flags, and their cached libraries do not move with K3's."""
+    """The -D constants of segment.cu are its own: segment_max.cu and
+    prereduce.cu keep the plain flags, pixel_loss.cu has only its own
+    constant, and no cached library moves with K3's constants."""
     others = ("pixel_loss", "segment_max", "prereduce")
     built = {name: _build._target(name) for name in others}
-    for name in others:
+    for name in ("segment_max", "prereduce"):
         assert _build.flags(name) == _build.NVCC_FLAGS
+    assert _build.flags("pixel_loss") == _build.NVCC_FLAGS + (
+        f"-DPIXELS={pixel_loss.PIXELS_PER_BLOCK}",)
     monkeypatch.setitem(_build.DEFINES, "segment",
                         {"SPAN": 2 * segment.K3_SPAN,
                          "NSLOT": segment.K3_SLOTS})
