@@ -25,8 +25,11 @@
    (K4's precondition).
 4. The same for the kernels past the reference's K3 guard
    (num_segments + 1 > 9216, mulactseg_tpu/ops/segment.py:653-654): K6
-   with the nseg-4096 batch (S = 16,384), and K4 on the pre-reduced
-   term's outputs (precondition first); then, on the logits as
+   with the nseg-4096 batch (S = 16,384), also on its 4-byte path (the
+   logits one float into a larger storage; bitwise the same), K5 on K6's
+   planes under the retired ids (bitwise, timed: the K5 of the nseg-4096
+   step), and K4 on the pre-reduced term's outputs (precondition first);
+   then, on the logits as
    (2,359,296, 20) rows, K7 and K8 (the row-major group term, rows divided
    by T) and K9 and K10 (the row-major pixel loss). K6 and K8 write
    bf16-rounded values: bf16-exact, within one bf16 ulp of the plain
@@ -77,8 +80,9 @@
    top kernels and the device's idle share. Every timed run comes before these passes.
 
 Prints, before the last line, the slices' numbers and one JSON line with
-each kernel's check and times, its launches on each main path
-(launches_by_path) and their sum (launches); the last line is
+each kernel's check and times (K5 twice: at plbl's shapes and on K6's
+planes), its launches on each main path (launches_by_path) and their sum
+(launches); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero; there is no CPU fallback.
 """
@@ -575,6 +579,10 @@ def large_kernel_checks(logits, batch, dev):
     kernels-line rows, the row inputs (rows, scaled rows, ids, bits) and
     K4's max abs error on the pre-reduced term's outputs."""
     from mulactseg_tpu_torch.ops import pixel_loss, segment
+    from mulactseg_tpu_torch.ops.segment_max import (
+        seg_max_fwd,
+        segment_max_plain,
+    )
 
     HW, P, C = H * W, B * H * W, NUM_CLASSES
     S = B * NSEG_LARGE
@@ -607,7 +615,41 @@ def large_kernel_checks(logits, batch, dev):
           f"map back: K5 bitwise; against the plain chain {term[0]} maxima "
           f"and {term[1]} argmax pixels of {S * C} differ (near-ties)",
           flush=True)
-    del got, want, probs
+    # K6 on its 4-byte path too: the logits one float into a larger
+    # storage (HW % 4 == 0, but not 16-byte aligned); bitwise the same
+    store = torch.empty(xc.numel() + 1, device=dev)
+    store[1:] = xc.reshape(-1)
+    xu = store[1:].view(B, C, HW)
+    check(segment.prereduce_instance(xc, sid3) == (C, True)
+          and segment.prereduce_instance(xu, sid3) == (C, False),
+          "K6 instances: want the C = 20 one, 16-byte path on the model's "
+          "logits, 4-byte path on the shifted copy")
+    got_u = segment.prereduce_softmax_nchw(xu, sid3, S, temp)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, got_u)),
+          "K6 differs between its 16-byte and 4-byte paths")
+    print(json.dumps({"prereduce_4byte_path": {
+        "K6_ms": time_ms(lambda: segment.prereduce_softmax_nchw(
+            xu, sid3, S, temp), graph=True)}}), flush=True)
+    del store, xu, got_u
+    # K5 where the stage-1 step runs it: on K6's planes under the retired
+    # ids (S = 16,384), bitwise against its plain version
+    planes, sid2 = got[0], got[2]
+    kv, krow = seg_max_fwd(planes.t(), sid2, S)
+    pv, prow = segment_max_plain(planes.t(), sid2, S)
+    torch.cuda.synchronize()
+    check(torch.equal(krow, prow) and torch.equal(kv.view(torch.int32),
+                                                  pv.view(torch.int32)),
+          "K5 on K6's planes differs from its plain version")
+    n_k5 = int((sid2 < S).sum())
+    k5_row = (f"seg_max_fwd@K6's planes, nseg {NSEG_LARGE}",
+              (kv - pv).abs().max().item(),
+              time_ms(lambda: seg_max_fwd(planes.t(), sid2, S), graph=True),
+              time_ms(lambda: segment_max_plain(planes.t(), sid2, S)),
+              bound(P * 4 + n_k5 * row_bytes + S * C * 8, n_k5 * C), None)
+    print(f"K5 on K6's planes: bitwise; {n_k5} of {P} pixels valid under the "
+          f"retired ids", flush=True)
+    del got, want, probs, planes, sid2, kv, krow, pv, prow
     # K4 on the pre-reduced term's outputs, the backward of this path
     target = torch.as_tensor(batch["target"]).to(dev)
     _, k4_err = check_k4(xc, sid3, pre_vals, pre_pix,
@@ -621,6 +663,7 @@ def large_kernel_checks(logits, batch, dev):
                  time_ms(lambda: segment.prereduce_plain(xc, sid2d, S,
                                                          temp)),
                  bound(pre_bytes(B * -(-HW // 4)), 12 * P * C), None))
+    rows.append(k5_row)
 
     # the logits as (P, C) rows, the row-major ops' layout
     x2d = logits.permute(0, 2, 3, 1).reshape(P, C).contiguous()
@@ -1157,8 +1200,8 @@ def main():
     from mulactseg_tpu_torch.engine.train import make_train_step
     from mulactseg_tpu_torch.models import convert
     from mulactseg_tpu_torch.models.factory import get_model
-    # pixel_loss and segment set their sources' -D constants before the
-    # build
+    # pixel_loss, segment and segment_max set their sources' -D constants
+    # before the build
     from mulactseg_tpu_torch.ops import _build, pixel_loss, segment  # noqa: F401
 
     dev = torch.device("cuda")
@@ -1329,10 +1372,13 @@ def main():
         "peak_mem_gib": large_peak_gib, **large_losses}))
     print(json.dumps(plbl_stats))
     kernels = []
-    for name, err, ms, plain_ms, (bound_ms, bound_by), lib_ms in rows:
+    for label, err, ms, plain_ms, (bound_ms, bound_by), lib_ms in rows:
+        # a kernel timed at a second shape is labelled name@shape
+        name, _, shape = label.partition("@")
         tag, source, replaces = KERNELS[name]
         kernels.append({
-            "name": f"{tag} {name}", "route": "cuda", "source": source,
+            "name": f"{tag} {name}" + (f" ({shape})" if shape else ""),
+            "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "launches_by_path": {path: n[name] for path, n in by_path.items()
                                  if n.get(name)},

@@ -28,6 +28,7 @@ import math
 import torch
 
 from mulactseg_tpu_torch.ops import _build
+from mulactseg_tpu_torch.ops.pixel_loss import compiled_classes
 from mulactseg_tpu_torch.ops.segment_max import seg_max_fwd, segment_max_plain
 
 MAX_CLASSES = 32
@@ -129,18 +130,19 @@ def _check(x, sid, num_segments):
                          "int32, and S >= 1")
 
 
-_VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-    ctypes.c_longlong
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ssm_fwd(x, sid, keys, vals, pix, B, C, HW, S, 1/T, stream);
 # ssm_bwd(x, sid, vals, pix, g, dl, B, C, HW, S, 1/T, stream);
 # ssm_rows_fwd(x, sid, keys, vals, pix, P, C, S, stream)
 _ARGTYPES = {"ssm_fwd": [_VP] * 5 + [_I] * 4 + [_F, _VP],
              "ssm_bwd": [_VP] * 6 + [_I] * 4 + [_F, _VP],
              "ssm_rows_fwd": [_VP] * 5 + [_I] * 3 + [_VP]}
-# prereduce_fwd(x, sid, planes, choice, sid2, B, C, HW, pixel stride,
-#               class stride, image stride, S, 1/T, stream)
-_PRE_ARGTYPES = {"prereduce_fwd": [_VP] * 5 + [_I] * 3 + [_LL] * 3
-                 + [_I, _F, _VP]}
+# prereduce_nchw_fwd(x, sid, planes, choice, sid2, B, C, HW, S, 1/T, nc,
+#                    vec, stream);
+# prereduce_rows_fwd(x, sid, planes, choice, sid2, P, C, S, stream)
+_PRE_ARGTYPES = {"prereduce_nchw_fwd": [_VP] * 5 + [_I] * 4
+                 + [_F, _I, _I, _VP],
+                 "prereduce_rows_fwd": [_VP] * 5 + [_I] * 3 + [_VP]}
 
 
 def _lib():
@@ -199,21 +201,25 @@ def ssm_bwd(xc, sid3, vals, pix, g, temp: float):
     return dl
 
 
-def _prereduce(x, sid, B, C, HW, strides, num_segments, inv_temp, name):
-    """Launches csrc/prereduce.cu on B images of HW pixels whose logits sit
-    at x[b * strides[2] + hw * strides[0] + c * strides[1]]."""
+def _pre_outputs(x, B, C, HW):
+    """Empty (planes, choices, retired ids) of a pre-reduction."""
     P = B * HW
     nb = -(-HW // BLOCK)
-    planes = torch.empty(C, P, device=x.device)
-    choice = torch.empty(C, B * nb, device=x.device, dtype=torch.int32)
-    sid2 = torch.empty(P, device=x.device, dtype=torch.int32)
-    code = _build.load("prereduce", _PRE_ARGTYPES).prereduce_fwd(
-        x.data_ptr(), sid.data_ptr(), planes.data_ptr(), choice.data_ptr(),
-        sid2.data_ptr(), B, C, HW, *strides, num_segments, inv_temp,
-        _build.stream_ptr(x.device))
-    _build.check(code, name)
-    _build.LAUNCHES[name] += 1
-    return planes, choice, sid2
+    return (torch.empty(C, P, device=x.device),
+            torch.empty(C, B * nb, device=x.device, dtype=torch.int32),
+            torch.empty(P, device=x.device, dtype=torch.int32))
+
+
+def prereduce_instance(xc, sid3):
+    """(nc, vec): K6's instance for (B, C, HW) logits. nc as K1's
+    (pixel_loss.compiled_classes: 20 compiled, else 0 for C at run time);
+    vec is True where a thread
+    can read its raster block as one 16-byte word per class: HW % 4 == 0
+    and logits and ids 16-byte aligned (the planes and retired ids, which
+    the wrapper allocates, always are)."""
+    HW = xc.shape[2]
+    return compiled_classes(xc.shape[1]), HW % 4 == 0 \
+        and xc.data_ptr() % 16 == 0 and sid3.data_ptr() % 16 == 0
 
 
 def prereduce_softmax_nchw(xc, sid3, num_segments: int, temp: float):
@@ -225,20 +231,33 @@ def prereduce_softmax_nchw(xc, sid3, num_segments: int, temp: float):
     if xc.device.type == "cpu":
         return prereduce_plain(xc, sid3.reshape(B, HW), num_segments, temp)
     _check(xc, sid3, num_segments)
-    return _prereduce(xc, sid3, B, C, HW, (1, HW, C * HW), num_segments,
-                      1.0 / temp, "prereduce_nchw")
+    planes, choice, sid2 = out = _pre_outputs(xc, B, C, HW)
+    nc, vec = prereduce_instance(xc, sid3)
+    code = _build.load("prereduce", _PRE_ARGTYPES).prereduce_nchw_fwd(
+        xc.data_ptr(), sid3.data_ptr(), planes.data_ptr(), choice.data_ptr(),
+        sid2.data_ptr(), B, C, HW, num_segments, 1.0 / temp, nc, int(vec),
+        _build.stream_ptr(xc.device))
+    _build.check(code, "prereduce_nchw")
+    _build.LAUNCHES["prereduce_nchw"] += 1
+    return out
 
 
 def prereduce_softmax_rows(scaled, sid, num_segments: int):
-    """K8: K6 over (P, C) float32 rows already divided by T (no
+    """K8: K6's function over (P, C) float32 rows already divided by T (no
     temperature), one run of blocks from row 0; sid (P,) int32."""
     P, C = scaled.shape
     if scaled.device.type == "cpu":
         return prereduce_plain(scaled.t()[None], sid[None], num_segments,
                                1.0)
     _check(scaled, sid, num_segments)
-    return _prereduce(scaled, sid, 1, C, P, (C, 1, 0), num_segments, 1.0,
-                      "prereduce_rows")
+    planes, choice, sid2 = out = _pre_outputs(scaled, 1, C, P)
+    code = _build.load("prereduce", _PRE_ARGTYPES).prereduce_rows_fwd(
+        scaled.data_ptr(), sid.data_ptr(), planes.data_ptr(),
+        choice.data_ptr(), sid2.data_ptr(), P, C, num_segments,
+        _build.stream_ptr(scaled.device))
+    _build.check(code, "prereduce_rows")
+    _build.LAUNCHES["prereduce_rows"] += 1
+    return out
 
 
 def _pixel_of_row(row, choice, B, HW):

@@ -4,7 +4,7 @@ _seg_max_argmax_impl -> segment_pallas.segment_max_pallas, K5; backward
 _smg_bwd, a gather-compare in plain XLA there and in plain torch here).
 
 Forward (K5, csrc/segment_max.cu seg_max_fwd): ((S, C) float32 max, (S, C)
-int32 argmax pixel). sid[p] == S marks an invalid pixel; an absent
+int32 argmax pixel), for C <= 128.
 segment gives (0.0, P); among equal values the smallest pixel index wins
 (the first in raster order, as the stable sort makes it in both JAX
 paths). -0.0 counts as +0.0. NaN values are outside the contract.
@@ -19,6 +19,16 @@ import ctypes
 import torch
 
 from mulactseg_tpu_torch.ops import _build
+
+MAX_CLASSES = 128  # K5 stages a warp's C keys in shared memory
+# K5's span of pixels per block and its shared-table slots:
+# csrc/segment_max.cu is built with them as SPAN and NSLOT (the fastest
+# of those timed on an H100 that keep the table, PERF.md).
+K5_SPAN = 1024
+K5_SLOTS = 16
+_build.DEFINES["segment_max"] = {"SPAN": K5_SPAN, "NSLOT": K5_SLOTS}
+# K5's load paths (csrc/segment_max.cu Layout)
+ANY, PLANES, ROWS = 0, 1, 2
 
 
 def segment_max_plain(values, sid, num_segments: int):
@@ -54,22 +64,39 @@ def _check(values, sid, num_segments):
     if sid.device != values.device:
         raise ValueError("values and sid on different devices")
     if values.shape[0] >= 2 ** 31 - 1 or num_segments < 1 \
-            or values.shape[1] < 1:
-        raise ValueError("pixel count must fit int32, S >= 1 and C >= 1")
+            or not 1 <= values.shape[1] <= MAX_CLASSES:
+        raise ValueError(f"pixel count must fit int32, S >= 1 and 1 <= C <= "
+                         f"{MAX_CLASSES}")
+
+
+def layout(values) -> int:
+    """K5's load path for (P, C) values: PLANES where a class's pixels are
+    contiguous and 16-byte words (pixel stride 1, class stride and P
+    multiples of 4, 16-byte aligned: the (C, P) planes of an NCHW tensor
+    through .t()), ROWS for a contiguous (P, C) array with C a multiple of
+    4, 16-byte aligned, else ANY (4-byte loads)."""
+    P, C = values.shape
+    ps, cs = values.stride()
+    aligned = values.data_ptr() % 16 == 0
+    if ps == 1 and cs % 4 == 0 and P % 4 == 0 and aligned:
+        return PLANES
+    if cs == 1 and ps == C and C % 4 == 0 and aligned:
+        return ROWS
+    return ANY
 
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # seg_max_fwd(values, sid, keys, vals, pix, P, C, pixel stride,
-#             class stride, S, stream)
-_ARGTYPES = {"seg_max_fwd": [_VP] * 5 + [_I, _I, _LL, _LL, _I, _VP]}
+#             class stride, S, layout, stream)
+_ARGTYPES = {"seg_max_fwd": [_VP] * 5 + [_I, _I, _LL, _LL, _I, _I, _VP]}
 
 
 def seg_max_fwd(values, sid, num_segments: int):
     """K5. values (P, C) float32 with any non-negative strides, so both a
     contiguous (P, C) array and the (C, P) planes of an NCHW tensor
-    (`x.view(C, P).t()`) go in without a copy; sid (P,) int32. CPU tensors
-    take the plain version; CUDA tensors the kernel. NaN values are outside
-    the contract."""
+    (`x.view(C, P).t()`) go in without a copy (`layout` picks the load
+    path); sid (P,) int32. CPU tensors take the plain version; CUDA
+    tensors the kernel. NaN values are outside the contract."""
     if values.device.type == "cpu":
         return segment_max_plain(values, sid, num_segments)
     _check(values, sid, num_segments)
@@ -81,7 +108,7 @@ def seg_max_fwd(values, sid, num_segments: int):
     code = _build.load("segment_max", _ARGTYPES).seg_max_fwd(
         values.data_ptr(), sid.data_ptr(), keys.data_ptr(), vals.data_ptr(),
         pix.data_ptr(), P, C, values.stride(0), values.stride(1), S,
-        _build.stream_ptr(values.device))
+        layout(values), _build.stream_ptr(values.device))
     _build.check(code, "seg_max_fwd")
     _build.LAUNCHES["seg_max_fwd"] += 1
     return vals, pix

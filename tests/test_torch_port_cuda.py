@@ -21,7 +21,8 @@ term's. K3's cases reach around its spans and shared slots
 span than slots, one segment per image, an exact tie across a span border
 and ragged last spans. K5 (segment max of arbitrary values) is
 exact: both outputs equal the plain version's (-0.0 counts as +0.0 on
-both sides). K6 and K8 write bf16-rounded values: within one bf16 ulp
+both sides), on each of its load paths and with ids around its spans and
+slots. K6 and K8 write bf16-rounded values: within one bf16 ulp
 (2**-7 of the larger; the exps may differ by a float32 ulp, which can move
 a value across a rounding boundary), retired ids exact, and a choice that
 differs from the plain one must pick a same-segment pixel whose float32
@@ -300,6 +301,63 @@ def test_segment_max_kernel_matches_plain(dev, P, C, signed, planes):
     assert (pix[5] < P).all() and (vals[5] == 0).all()
 
 
+def _k5_ids(kind, rng, P, S):
+    """K5's ids around its spans and slots (S = 8 * K5_SLOTS):
+    collide  runs of 4 whose ids are equal modulo K5_SLOTS in groups of 8,
+             so most runs of a span find their slot held; 20% invalid;
+    retired  runs of 12 of one id with 3 of every 4 pixels retired (S),
+             as K6 leaves them, so valid pixels of a run are interleaved
+             with invalid ones;
+    plbl     runs of 40 over 64 ids with 70% of the runs invalid.
+    Segment 3 is absent in each."""
+    NSLOT = segment_max.K5_SLOTS
+    if kind == "collide":
+        r = np.arange(-(-P // 4))
+        ids = np.repeat((r * NSLOT + r // 8) % S, 4)[:P]
+        ids = np.where(np.repeat(rng.rand(r.size) < 0.2, 4)[:P], S, ids)
+    elif kind == "retired":
+        ids = np.repeat(rng.randint(0, S, -(-P // 12)), 12)[:P]
+        ids = np.where((np.arange(P) % 4 != 0) & (rng.rand(P) < 0.9), S,
+                       ids)
+    else:
+        ids = np.repeat(rng.randint(0, 64, -(-P // 40)), 40)[:P]
+        ids = np.where(np.repeat(rng.rand(-(-P // 40)) < 0.7, 40)[:P], S,
+                       ids)
+    return np.where(ids == 3, S, ids)
+
+
+@pytest.mark.parametrize("kind", ["collide", "retired", "plbl"])
+@pytest.mark.parametrize("C,planes", [(20, True), (20, False), (7, True),
+                                      (7, False)])
+def test_segment_max_kernel_layouts(dev, kind, C, planes):
+    """K5 on each load path (planes: (C, P) planes through .t(), P % 4 ==
+    0; rows: a contiguous (P, C) array, the 16-byte path at C = 20, 4-byte
+    loads at C = 7) with ids that collide in its shared slots, interleave
+    retired pixels or leave long invalid runs, and with values in exact
+    ties across span borders (each value repeats 3 spans later):
+    bitwise equal to the plain version."""
+    rng = np.random.RandomState(C + len(kind))
+    SPAN = segment_max.K5_SPAN
+    P, S = 5 * SPAN + 64, 8 * segment_max.K5_SLOTS
+    v = (np.round(rng.rand(P, C) * 16) / 16).astype(np.float32)
+    v[3 * SPAN:] = v[:P - 3 * SPAN]
+    sid = torch.from_numpy(_k5_ids(kind, rng, P, S).astype(np.int32)).to(dev)
+    values = torch.from_numpy(v).to(dev)
+    if planes:
+        values = values.t().contiguous().t()
+    assert segment_max.layout(values) == (
+        segment_max.PLANES if planes else
+        segment_max.ROWS if C % 4 == 0 else segment_max.ANY)
+    _build.reset_launches()
+    vals, pix = segment_max.seg_max_fwd(values, sid, S)
+    pvals, ppix = segment_max.segment_max_plain(values, sid, S)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"seg_max_fwd": 1}
+    assert torch.equal(pix, ppix)
+    assert torch.equal(vals.view(torch.int32), pvals.view(torch.int32))
+    assert (pix < P).any() and (pix == P).any()
+
+
 def _rows(rng, P, C, underflow):
     """(P, C) rows scaled by 1/T = 10 with exact ties between row pairs (or
     an underflowed class), runs of 6 rows, absent segment 3 and 5% invalid
@@ -337,13 +395,22 @@ def _check_prereduce(got, want, probs, sid, B, HW):
     assert ((probs[cls, q] - probs[cls, pq]).abs()[differ] <= 1e-6).all()
 
 
-@pytest.mark.parametrize("B,C,HW", [(2, 20, 33 * 31), (3, 7, 4096)])
-def test_prereduce_nchw_kernel_matches_plain(dev, B, C, HW):
-    """K6, and the pre-reduced group term it feeds (K6, K5, map back), at a
-    ragged HW (a short last block per image) and an aligned one."""
+@pytest.mark.parametrize("B,C,HW,offset", [
+    (2, 20, 33 * 31, 0), (3, 7, 4096, 0), (2, 20, 4096, 0), (2, 20, 4096, 1),
+    (2, 20, 4098, 0), (1, 7, 700, 3)])
+def test_prereduce_nchw_kernel_matches_plain(dev, B, C, HW, offset):
+    """K6, and the pre-reduced group term it feeds (K6, K5, map back), on
+    both class instances and both paths: the 16-byte path where HW % 4 ==
+    0 and the logits are aligned, the 4-byte path at a ragged HW (a short
+    last block per image) and for logits `offset` floats into a larger
+    storage."""
     rng = np.random.RandomState(HW + C + 1)
     x, sid3, S = _segments(rng, B, C, HW, 9, False)
-    x, sid3 = torch.from_numpy(x).to(dev), torch.from_numpy(sid3).to(dev)
+    store = torch.from_numpy(np.concatenate(
+        [np.zeros(offset, np.float32), x.reshape(-1)])).to(dev)
+    x, sid3 = store[offset:].view(B, C, HW), torch.from_numpy(sid3).to(dev)
+    assert segment.prereduce_instance(x, sid3) == (
+        20 if C == 20 else 0, HW % 4 == 0 and offset % 4 == 0)
     _build.reset_launches()
     got = segment.prereduce_softmax_nchw(x, sid3, S, 0.1)
     want = segment.prereduce_plain(x, sid3.reshape(B, HW), S, 0.1)

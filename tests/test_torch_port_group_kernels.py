@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from mulactseg_tpu_torch.ops import _build, pixel_loss, segment
+from mulactseg_tpu_torch.ops import _build, pixel_loss, segment, segment_max
 from tests import test_torch_port_ops as ops_fixtures
 from tests import test_torch_port_prereduce as pre_fixtures
 
@@ -189,15 +189,16 @@ def test_span_and_slot_counts_reach_the_build(monkeypatch):
 
 
 def test_other_sources_build_without_defines(monkeypatch):
-    """The -D constants of segment.cu are its own: segment_max.cu and
-    prereduce.cu keep the plain flags, pixel_loss.cu has only its own
-    constant, and no cached library moves with K3's constants."""
+    """The -D constants of segment.cu are its own: prereduce.cu keeps the
+    plain flags, pixel_loss.cu and segment_max.cu have only their own
+    constants, and no cached library moves with K3's constants."""
     others = ("pixel_loss", "segment_max", "prereduce")
     built = {name: _build._target(name) for name in others}
-    for name in ("segment_max", "prereduce"):
-        assert _build.flags(name) == _build.NVCC_FLAGS
+    assert _build.flags("prereduce") == _build.NVCC_FLAGS
     assert _build.flags("pixel_loss") == _build.NVCC_FLAGS + (
         f"-DPIXELS={pixel_loss.PIXELS_PER_BLOCK}",)
+    assert _build.flags("segment_max") == _build.NVCC_FLAGS + (
+        f"-DSPAN={segment_max.K5_SPAN}", f"-DNSLOT={segment_max.K5_SLOTS}")
     monkeypatch.setitem(_build.DEFINES, "segment",
                         {"SPAN": 2 * segment.K3_SPAN,
                          "NSLOT": segment.K3_SLOTS})
