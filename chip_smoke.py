@@ -31,7 +31,16 @@
    step), and K4 on the pre-reduced term's outputs (precondition first);
    then, on the logits as
    (2,359,296, 20) rows, K7 and K8 (the row-major group term, rows divided
-   by T) and K9 and K10 (the row-major pixel loss). K6 and K8 write
+   by T) and K9 and K10 (the row-major pixel loss). K7 is held against
+   its plain version (absent sets exact, maxima within 1e-6, argmax rows
+   at the plain maximum within 1e-6: the plain version sums the softmax
+   with torch's sum, the kernel in class order), and bitwise against the
+   segment max of the softmax summed in class order (class_order_softmax,
+   a reference of this script); K10, whose exp2 and reciprocal differ
+   from the plain version's exp and divisions, within 1e-6 of max |dl|.
+   Both are also held and timed on their 4-byte
+   instances (the rows one float into a larger storage), which must give
+   the 16-byte instances' bits. K6 and K8 write
    bf16-rounded values: bf16-exact, within one bf16 ulp of the plain
    version's and equal for > 99.9% of them, and a choice that differs
    from the plain version's must reach the block max within 1e-6. Behind
@@ -212,6 +221,21 @@ def bound(nbytes, nops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def class_order_softmax(scaled):
+    """K7's probabilities in the kernel's own order: the float32 softmax of
+    the bf16-rounded rows, exp(u - max) summed in class order, then e / z.
+    The plain version sums with torch's sum; only this order lets K7 be
+    held bitwise."""
+    from mulactseg_tpu_torch.ops import segment
+
+    u = segment._round_bf16(scaled)
+    e = torch.exp(u - u.amax(dim=1, keepdim=True))
+    z = e[:, 0]
+    for c in range(1, e.shape[1]):
+        z = z + e[:, c]
+    return e / z[:, None]
 
 
 def make_batches(n, seed, nseg=None):
@@ -670,11 +694,30 @@ def large_kernel_checks(logits, batch, dev):
     scaled = x2d / temp
     bits = bits3.reshape(P)
 
-    # K7
+    # the rows one float into a larger storage: K7's and K10's 4-byte
+    # instances
+    store = torch.empty(2 * P * C + 2, device=dev)
+    store[1:P * C + 1] = x2d.reshape(-1)
+    store[P * C + 2:] = scaled.reshape(-1)
+    x2d_u = store[1:P * C + 1].view(P, C)
+    scaled_u = store[P * C + 2:].view(P, C)
+    check(segment.rows_instance(scaled) == (C, True)
+          and segment.rows_instance(scaled_u) == (C, False)
+          and pixel_loss.rows_instance(x2d, bits) == (C, True)
+          and pixel_loss.rows_instance(x2d_u, bits) == (C, False),
+          "K7/K10 instances: want the C = 20 ones, 16-byte units on the "
+          "rows, 4-byte units on the shifted copies")
+    four_byte = {}
+
+    # K7: against its plain version, bitwise against the class-order
+    # reference, and the same bits on both instances
     vals, pix = segment.ssm_rows_fwd(scaled, sid, S)
     pvals, ppix = segment.ssm_rows_fwd_plain(scaled, sid, S)
+    uvals, upix = segment.ssm_rows_fwd(scaled_u, sid, S)
     torch.cuda.synchronize()
     absent = pix == P
+    check(bool((pix < P).any() and absent.any()), "K7: no present or no "
+          "absent entry")
     check(torch.equal(absent, ppix == P), "K7 absent sets differ")
     check(bool((vals[absent] == 0).all()), "K7 absent value is not 0.0")
     err = (vals - pvals).abs().max().item()
@@ -687,6 +730,18 @@ def large_kernel_checks(logits, batch, dev):
     check(bool((sid[q] == torch.arange(S, device=dev)[:, None]
                 .expand(S, C)[~absent]).all()), "K7 argmax outside segment")
     del probs
+    cvals, cpix = segment.segment_max_plain(class_order_softmax(scaled),
+                                            sid, S)
+    check(torch.equal(pix, cpix) and torch.equal(vals.view(torch.int32),
+                                                 cvals.view(torch.int32)),
+          "K7 differs bitwise from the class-order reference")
+    check(torch.equal(pix, upix) and torch.equal(vals.view(torch.int32),
+                                                 uvals.view(torch.int32)),
+          "K7 differs between its 16-byte and 4-byte instances")
+    del cvals, cpix
+    four_byte["K7_ms"] = time_ms(
+        lambda: segment.ssm_rows_fwd(scaled_u, sid, S), graph=True)
+    del uvals, upix
     rows.append(("ssm_rows_fwd", err,
                  time_ms(lambda: segment.ssm_rows_fwd(scaled, sid, S),
                          graph=True),
@@ -743,12 +798,20 @@ def large_kernel_checks(logits, batch, dev):
     got = pixel_loss.pixel_ce_rows_bwd(x2d, bits, g, temp)
     want_dl = pixel_loss.pixel_ce_bwd_plain(x2d.t()[None], bits[None, None],
                                             g, temp)[0].t()
+    got_u = pixel_loss.pixel_ce_rows_bwd(x2d_u, bits, g, temp)
     torch.cuda.synchronize()
     err = (got - want_dl).abs().max().item()
     scale = want_dl.abs().max().item()
     check(scale > 0 and err <= 1e-6 * scale,
           f"K10 dl differs: max abs err {err} vs max |dl| {scale}")
-    del got, want_dl
+    check(torch.equal(got.view(torch.int32), got_u.view(torch.int32)),
+          "K10 differs between its 16-byte and 4-byte instances")
+    del got, want_dl, got_u
+    four_byte["K10_ms"] = time_ms(
+        lambda: pixel_loss.pixel_ce_rows_bwd(x2d_u, bits, g, temp),
+        graph=True)
+    print(json.dumps({"rows_4byte_path": four_byte}), flush=True)
+    del store, x2d_u, scaled_u
     rows.append(("pixel_ce_rows_bwd", err,
                  time_ms(lambda: pixel_loss.pixel_ce_rows_bwd(x2d, bits, g,
                                                               temp),

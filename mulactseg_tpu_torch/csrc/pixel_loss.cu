@@ -36,7 +36,7 @@
 //   (the wrapper checks), a thread's pixels are 4 consecutive ones: one
 //   int4 load of their bits and one float4 load per class, so each warp
 //   access is 512 bytes and C of them are in flight at once. Otherwise
-//   (kNchw, and the (N, C) rows kRows) the 4 pixels lie THREADS apart and
+//   (kNchw, and K9's (N, C) rows kRows) the 4 pixels lie THREADS apart and
 //   each logit is one 4-byte load, coalesced across the warp for NCHW; a
 //   row's other classes come from L1.
 // - A group without a candidate loads no logits; in K2 it only stores
@@ -45,6 +45,27 @@
 //   with plain stores: streaming ones (st.global.cs) made ptxas keep 172
 //   registers a thread against 128, so half as many warps an SM, and K2
 //   ran 4% slower on the recipe's data on an H100 (PERF.md).
+// - K10 (pixel_ce_rows_bwd) stages a tile of PIXELS consecutive rows
+//   through shared memory, so that every global access is coalesced:
+//   K2's kernel over kRows read each logit with a 4-byte load and wrote
+//   each dl with a 4-byte store 4 C bytes from its neighbour lane's, so
+//   each 32-byte sector of dl was written in pieces by several store
+//   instructions (0.665 ms against a 0.086 ms bound on an H100, PERF.md).
+//   A block of TILE_THREADS threads loads the tile's bitmasks (int4
+//   loads), then the live rows' logits (popcount of the low C bits > 0)
+//   into a row-major (row, class) tile, unit j of the tile's rows going to
+//   row j / W, where a unit is a float4 (W = C / 4 a row, when C % 4 == 0
+//   and logits and bits are 16-byte aligned) or a float (W = C); a dead
+//   row's units are never read, so only live rows' bytes leave device
+//   memory. A row's units lie W | 1 units apart in the tile: an odd
+//   stride, so a quarter-warp's 16-byte or a warp's 4-byte accesses to
+//   its threads' rows hit distinct banks (at C = 20, W = 5: 80 bytes, the
+//   rows packed). One thread per row then reads its row, takes K2's
+//   arithmetic in K2's order (so dl is bitwise K2's on the same row),
+//   writes its dl, or zeros for a dead row, back over the row, and the
+//   block stores the tile with the same units, each warp instruction 32
+//   consecutive units: whole 128-byte lines of dl. The last tile may be
+//   short (N % PIXELS != 0, N % 4 != 0).
 // - K1 is one launch and bitwise reproducible: each block adds its sums in
 //   a fixed order (each thread its 4 pixels in order, warp shuffles, the
 //   warps in order) into one float4 partial; the block then takes a ticket
@@ -55,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 // PIXELS: pixels per block, 4 per thread; ops/_build.py passes it from
 // ops/pixel_loss.py (PIXELS_PER_BLOCK), which sizes K1's partials with it.
@@ -67,6 +90,7 @@
 #define THREADS (PIXELS / 4)
 #define WARPS (THREADS / 32)
 #define MAXC 31  // candidate bitmasks are int32
+#define TILE_THREADS 256  // K10: threads of a block, PIXELS rows a tile
 
 namespace {
 
@@ -153,17 +177,17 @@ __device__ __forceinline__ void load_logits(const float* __restrict__ xb,
   }
 }
 
-// Softmax of pixel k: leaves v[c][k] = exp(x_c / T - m) and rz = 1 / sum,
-// and returns pos = sum over candidates of p_c. u = x * (1/T) and u - max
-// follow the plain version's x / T and u - max (u may round one ulp
-// apart): at |u| ~ 100 a rounding of u moves p_c by ~1e-5, so the
-// exponent is not refolded. The exponential is exp2((u - max) log2(e)),
-// one multiply and one exp2 where expf takes about eight instructions.
-template <int NC>
-__device__ __forceinline__ float softmax_pos(float (&v)[Cls<NC>::kMax][4],
-                                             int k, int C, float inv_temp,
-                                             unsigned bits, float& rz) {
-  constexpr int K = Cls<NC>::kMax;
+// Softmax of pixel k of a group of G: leaves v[c][k] = exp(x_c / T - m)
+// and rz = 1 / sum, and returns pos = sum over candidates of p_c. u = x *
+// (1/T) and u - max follow the plain version's x / T and u - max (u may
+// round one ulp apart): at |u| ~ 100 a rounding of u moves p_c by ~1e-5,
+// so the exponent is not refolded. The exponential is exp2((u - max)
+// log2(e)), one multiply and one exp2 where expf takes about eight
+// instructions.
+template <int K, int G>
+__device__ __forceinline__ float softmax_pos(float (&v)[K][G], int k, int C,
+                                             float inv_temp, unsigned bits,
+                                             float& rz) {
   float m = -INFINITY;
 #pragma unroll
   for (int c = 0; c < K; ++c) {
@@ -183,6 +207,23 @@ __device__ __forceinline__ float softmax_pos(float (&v)[Cls<NC>::kMax][4],
   }
   rz = 1.f / z;
   return s * rz;
+}
+
+// K2's and K10's dl of a live pixel k (n candidates, n > 0) in place of its
+// logits: dl_c = coef (pos p_c - p_c t_c) = (coef / sum) e_c (pos - t_c).
+template <int K, int G>
+__device__ __forceinline__ void dl_of(float (&v)[K][G], int k, int C,
+                                      unsigned bits, int n, float g_oh,
+                                      float g_mh, float temp,
+                                      float inv_temp) {
+  float rz;
+  const float pos = softmax_pos(v, k, C, inv_temp, bits, rz);
+  const float a = (n == 1 ? g_oh : g_mh) / (temp * (pos + kEps)) * rz;
+  const float pos_m1 = pos - 1.f;
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    if (c < C) v[c][k] *= a * (((bits >> c) & 1u) ? pos_m1 : pos);
+  }
 }
 
 // Offset of image b's logits: (N, C) rows are one image.
@@ -280,7 +321,7 @@ __global__ void __launch_bounds__(THREADS) pixel_ce_fwd_kernel(
       if (n[k] > 0) {
         float rz;
         const float nll =
-            -logf(softmax_pos<NC>(v, k, C, inv_temp, bt[k], rz) + kEps);
+            -logf(softmax_pos(v, k, C, inv_temp, bt[k], rz) + kEps);
         if (n[k] == 1) {  // constant indices keep acc in registers
           acc[0] += nll;
           acc[1] += 1.f;
@@ -294,10 +335,10 @@ __global__ void __launch_bounds__(THREADS) pixel_ce_fwd_kernel(
   finish_sums(acc, partials, ticket, out);
 }
 
-// The group's dl for class c.
+// The group's dl for class c (NCHW layouts).
 template <int L>
 __device__ __forceinline__ void store_class(float* __restrict__ ob, int hw0,
-                                            int c, int C, int HW,
+                                            int c, int HW,
                                             const float (&d)[4]) {
   if (L == kVec) {
     *reinterpret_cast<float4*>(ob + c * HW + hw0) =
@@ -306,7 +347,7 @@ __device__ __forceinline__ void store_class(float* __restrict__ ob, int hw0,
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int hw = pixel_of<L>(hw0, k);
-      if (hw < HW) ob[L == kRows ? hw * C + c : c * HW + hw] = d[k];
+      if (hw < HW) ob[c * HW + hw] = d[k];
     }
   }
 }
@@ -338,16 +379,7 @@ __global__ void __launch_bounds__(THREADS) pixel_ce_bwd_kernel(
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       if (n[k] > 0) {
-        float rz;
-        const float pos = softmax_pos<NC>(v, k, C, inv_temp, bt[k], rz);
-        // dl_c = coef (pos p_c - p_c t_c) = (coef / sum) e_c (pos - t_c)
-        const float a =
-            (n[k] == 1 ? g_oh : g_mh) / (temp * (pos + kEps)) * rz;
-        const float pos_m1 = pos - 1.f;
-#pragma unroll
-        for (int c = 0; c < K; ++c) {
-          if (c < C) v[c][k] *= a * (((bt[k] >> c) & 1u) ? pos_m1 : pos);
-        }
+        dl_of(v, k, C, bt[k], n[k], g_oh, g_mh, temp, inv_temp);
       } else {
 #pragma unroll
         for (int c = 0; c < K; ++c) v[c][k] = 0.f;
@@ -369,7 +401,117 @@ __global__ void __launch_bounds__(THREADS) pixel_ce_bwd_kernel(
   float* ob = dl + base;
 #pragma unroll
   for (int c = 0; c < K; ++c) {
-    if (c < C) store_class<L>(ob, hw0, c, C, HW, v[c]);
+    if (c < C) store_class<L>(ob, hw0, c, HW, v[c]);
+  }
+}
+
+// K10's shared memory: PIXELS bitmasks, then PIXELS rows of W | 1 units.
+size_t rows_smem_bytes(int C, bool wide) {
+  const int W = wide ? C / 4 : C;
+  return (size_t)PIXELS * 4 + (size_t)PIXELS * (W | 1) * (wide ? 16 : 4);
+}
+
+// K10: one block per tile of PIXELS rows (see the note at the top).
+template <int NC, bool kWide>
+__global__ void __launch_bounds__(TILE_THREADS) pixel_ce_rows_bwd_kernel(
+    const float* __restrict__ x, const int* __restrict__ bits,
+    const float* __restrict__ g, float* __restrict__ dl, int C_, int N,
+    float temp, float inv_temp) {
+  typedef Unit<kWide> Un;
+  typedef typename Un::T U;
+  constexpr int F = Un::kFloats;
+  constexpr int K = (Cls<NC>::kMax + F - 1) / F * F;  // whole units
+  constexpr int kBatch = 32 / F;  // units a thread has in flight
+  const int C = Cls<NC>::n(C_);
+  const int W = C / F;   // units a row
+  const int ws = W | 1;  // units from one row of the tile to the next
+  extern __shared__ float4 smem[];
+  unsigned* sbits = reinterpret_cast<unsigned*>(smem);
+  U* tile = reinterpret_cast<U*>(smem + PIXELS / 4);
+  const long long r0 = (long long)blockIdx.x * PIXELS;
+  const int rows = (int)min((long long)PIXELS, (long long)N - r0);
+  const unsigned mask = (1u << C) - 1u;
+
+  // the tile's bitmasks, 0 past N
+  if (kWide) {
+    for (int i = threadIdx.x; i < PIXELS / 4; i += TILE_THREADS) {
+      int4 b;
+      if (4 * i + 4 <= rows) {
+        b = __ldg(reinterpret_cast<const int4*>(bits + r0) + i);
+      } else {
+        const int* bp = bits + r0 + 4 * i;
+        b.x = 4 * i < rows ? __ldg(bp) : 0;
+        b.y = 4 * i + 1 < rows ? __ldg(bp + 1) : 0;
+        b.z = 4 * i + 2 < rows ? __ldg(bp + 2) : 0;
+        b.w = 4 * i + 3 < rows ? __ldg(bp + 3) : 0;
+      }
+      reinterpret_cast<int4*>(sbits)[i] = b;
+    }
+  } else {
+    for (int r = threadIdx.x; r < PIXELS; r += TILE_THREADS)
+      sbits[r] = r < rows ? (unsigned)__ldg(bits + r0 + r) : 0u;
+  }
+  __syncthreads();
+
+  // the live rows' units, kBatch a thread in flight at once
+  const U* xu = reinterpret_cast<const U*>(x + r0 * C);
+  const int units = rows * W;
+  for (int j0 = threadIdx.x; j0 < units; j0 += kBatch * TILE_THREADS) {
+    U h[kBatch];
+    bool live[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int j = j0 + i * TILE_THREADS;
+      live[i] = j < units && (sbits[j / W] & mask);
+      if (live[i]) h[i] = __ldg(xu + j);
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int j = j0 + i * TILE_THREADS;
+      const int r = j / W;
+      if (live[i]) tile[r * ws + (j - r * W)] = h[i];
+    }
+  }
+  __syncthreads();
+
+  // one thread per row: its dl over its logits, zeros for a dead row
+  const float g_oh = __ldg(g), g_mh = __ldg(g + 1);
+  for (int r = threadIdx.x; r < rows; r += TILE_THREADS) {
+    U* row = tile + r * ws;
+    const unsigned bt = sbits[r];
+    const int n = __popc(bt & mask);
+    float v[K][1];
+    float f[F];
+    if (n > 0) {
+#pragma unroll
+      for (int i = 0; i < K / F; ++i) {
+        if (i < W) {
+          Un::get(row[i], f);
+#pragma unroll
+          for (int q = 0; q < F; ++q) v[F * i + q][0] = f[q];
+        }
+      }
+      dl_of(v, 0, C, bt, n, g_oh, g_mh, temp, inv_temp);
+    } else {
+#pragma unroll
+      for (int c = 0; c < K; ++c) v[c][0] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < K / F; ++i) {
+      if (i < W) {
+#pragma unroll
+        for (int q = 0; q < F; ++q) f[q] = v[F * i + q][0];
+        row[i] = Un::put(f);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the tile's dl, 32 consecutive units a warp instruction
+  U* du = reinterpret_cast<U*>(dl + r0 * C);
+  for (int j = threadIdx.x; j < units; j += TILE_THREADS) {
+    const int r = j / W;
+    du[j] = tile[r * ws + (j - r * W)];
   }
 }
 
@@ -390,6 +532,25 @@ int launch_bwd(const float* x, const int* bits, const float* g, float* dl,
   dim3 grid((HW + PIXELS - 1) / PIXELS, B);
   pixel_ce_bwd_kernel<NC, L><<<grid, THREADS, 0, stream>>>(
       x, bits, g, dl, C, HW, temp, 1.f / temp);
+  return (int)cudaGetLastError();
+}
+
+template <int NC, bool kWide>
+int launch_rows_bwd(const float* x, const int* bits, const float* g,
+                    float* dl, int N, int C, float temp,
+                    cudaStream_t stream) {
+  const size_t smem = rows_smem_bytes(C, kWide);
+  static size_t smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        pixel_ce_rows_bwd_kernel<NC, kWide>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = smem;
+  }
+  const unsigned blocks = (unsigned)(((long long)N + PIXELS - 1) / PIXELS);
+  pixel_ce_rows_bwd_kernel<NC, kWide><<<blocks, TILE_THREADS, smem, stream>>>(
+      x, bits, g, dl, C, N, temp, 1.f / temp);
   return (int)cudaGetLastError();
 }
 
@@ -438,7 +599,7 @@ extern "C" int pixel_ce_bwd(const float* x, const int* bits, const float* g,
                                          stream);
 }
 
-// K9 and K10: (N, C) rows.
+// K9: (N, C) rows, K1's kernel.
 extern "C" int pixel_ce_rows_fwd(const float* x, const int* bits,
                                  float* partials, unsigned* ticket,
                                  float* out, int N, int C, float temp, int nc,
@@ -450,12 +611,24 @@ extern "C" int pixel_ce_rows_fwd(const float* x, const int* bits,
                                          N, temp, stream);
 }
 
+// K10: wide asks for 16-byte units, which need C % 4 == 0 and 16-byte
+// aligned logits, bits and dl (the wrapper checks).
 extern "C" int pixel_ce_rows_bwd(const float* x, const int* bits,
                                  const float* g, float* dl, int N, int C,
-                                 float temp, int nc, cudaStream_t stream) {
-  if (bad_choice(nc, C)) return (int)cudaErrorInvalidValue;
-  return nc == 20 ? launch_bwd<20, kRows>(x, bits, g, dl, 1, C, N, temp,
-                                          stream)
-                  : launch_bwd<0, kRows>(x, bits, g, dl, 1, C, N, temp,
-                                         stream);
+                                 float temp, int nc, int wide,
+                                 cudaStream_t stream) {
+  if (bad_choice(nc, C) || C < 1 ||
+      (wide && (C % 4 != 0 || misaligned(x, bits, 0) ||
+                misaligned(dl, dl, 0))))
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  if (wide)
+    return nc == 20 ? launch_rows_bwd<20, true>(x, bits, g, dl, N, C, temp,
+                                                stream)
+                    : launch_rows_bwd<0, true>(x, bits, g, dl, N, C, temp,
+                                               stream);
+  return nc == 20 ? launch_rows_bwd<20, false>(x, bits, g, dl, N, C, temp,
+                                               stream)
+                  : launch_rows_bwd<0, false>(x, bits, g, dl, N, C, temp,
+                                              stream);
 }

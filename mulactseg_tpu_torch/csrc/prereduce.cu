@@ -50,7 +50,8 @@
 // apart, the rest of each 32-byte sector from L1. Either way a warp's
 // choice stores for one class are 32 consecutive ints. The arithmetic
 // (x * inv_temp, expf, the sum in class order, e / z, the merge and
-// round_bf16) is the first design's, so the outputs are bitwise the same.
+// round_bf16, common.cuh: the same bits as the first design's integer
+// trick) is the first design's, so the outputs are bitwise the same.
 // The true division takes its slow path for a denormal quotient, which
 // the model's cosine logits (|x| <= 1 at T 0.1) never give; logits such
 // as 3 N(0, 1) do, and then K6 takes ~2.5x as long (PERF.md).
@@ -65,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 #define MAXC 32
 #define THREADS 256
@@ -81,12 +84,6 @@ struct Cls {
 };
 
 enum Layout { kScalar, kVec };
-
-__device__ __forceinline__ float round_bf16(float v) {
-  unsigned u = __float_as_uint(v);
-  u += 0x7fffu + ((u >> 16) & 1u);  // round to nearest even (finite v)
-  return __uint_as_float(u & 0xffff0000u);
-}
 
 // K6: grid (raster blocks / THREADS, B), one thread per raster block.
 template <int NC, Layout L>

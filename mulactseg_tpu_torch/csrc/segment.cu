@@ -78,26 +78,57 @@
 // plane, with the dense form's arithmetic (sum in class order), so the
 // result does not depend on the design.
 //
-// K7 (ssm_rows_fwd) is K3's first design over (P, C) rows that the caller
-// has already divided by T: one thread per row reads its C contiguous
-// floats (a warp's loads for one class are 80 bytes apart, but the row's
-// other classes then come from L1, so each byte leaves device memory
-// once), rounds each to bf16 as the TPU path's gather stream does, divides
-// by the normaliser as the TPU kernel does, merges raster runs inside each
-// warp by shuffles and issues one global atomicMax per run and class. At
-// (2,359,296, 20) rows it must read 9.4 MB of ids and the 189 MB of rows
-// only where valid.
+// K7 design (ssm_rows_fwd, over (P, C) rows that the caller has already
+// divided by T): K3's span walk over the valid rows only. At (2,359,296,
+// 20) rows it must read the 9.4 MB of ids, the rows of the valid
+// (multi-hot) pixels (about 40% of 189 MB) and the 2.6 MB key table:
+// ~0.027 ms. Its arithmetic is the first K7's: each value rounded to bf16
+// (the TPU path feeds its kernel bf16 rows, mulactseg_tpu/ops/segment.py:
+// 394), the max, expf, the sum in class order and the true division e / z
+// (segment_pallas.py:172-176), heavier than K3's, so with all 32 lanes of
+// a warp computing whatever share of its rows is valid, the arithmetic,
+// not the bytes, set the time (a K3-shaped walk over all rows took 0.12 ms
+// on an H100, PERF.md). So each block owns a span of
+// ROWS_SPAN rows and each warp a contiguous share of it; the warp reads
+// its ids 32 at a time (two chunks ahead), appends its valid rows to a
+// queue in shared memory (a ballot and a popcount give each its place)
+// and takes 32 valid rows a step. Each lane loads its own row as units,
+// 16-byte ones where C % 4 == 0 and the rows are 16-byte aligned (5
+// float4s at C = 20), else 4-byte ones, in flight during the run
+// analysis; only valid rows are read. Runs are formed over the queued
+// rows, so an invalid row does not end a run. Then K3's pieces: the run
+// heads claim slots of a direct-mapped shared table of 64-bit keys
+// ((float_bits(p) << 32) | ~row), the values go to the warp's (class,
+// lane) stage, lane c walks class c at the end of each run (the key takes
+// the row from the queue), a run whose slot another id holds goes
+// straight to the global table, and the slots are flushed after the span.
+// ROWS_SPAN and ROWS_NSLOT come from ops/segment.py (K7_SPAN, K7_SLOTS),
+// chosen by a grid timed on an H100. The values and keys are bitwise the
+// first design's, whose one thread per row merged each class across the
+// warp by 64-bit shuffles and issued one global atomicMax per run and
+// class (0.2253 ms).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
 
 #define MAXC 32
 #define THREADS 256
 #define WARPS (THREADS / 32)
 // SPAN: pixels of one image per K3 block (a multiple of 32); NSLOT: slots
-// of K3's shared table (a power of two). ops/_build.py passes both.
+// of K3's shared table (a power of two). ROWS_SPAN and ROWS_NSLOT: the
+// same for K7. ops/_build.py passes all four.
 #if !defined(SPAN) || !defined(NSLOT)
 #error "build with -DSPAN=... -DNSLOT=... (ops/segment.py K3_SPAN, K3_SLOTS)"
+#endif
+#if !defined(ROWS_SPAN) || !defined(ROWS_NSLOT)
+#error "build with -DROWS_SPAN=... -DROWS_NSLOT=... (ops/segment.py K7_SPAN, K7_SLOTS)"
+#endif
+#if ROWS_SPAN % (32 * WARPS) != 0 || \
+    (ROWS_NSLOT & (ROWS_NSLOT - 1)) != 0 || ROWS_NSLOT < 4
+#error "ROWS_SPAN must be a multiple of 256 and ROWS_NSLOT a power of two >= 4"
 #endif
 // words between two classes' rows of a warp's staged values: a multiple
 // of 4 for 16-byte loads, and 4 * 8 lanes cover the 32 banks once
@@ -115,12 +146,6 @@ struct Cls {
   static constexpr int kMax = NC > 0 ? NC : MAXC;
   __device__ __forceinline__ static int n(int c) { return NC > 0 ? NC : c; }
 };
-
-__device__ __forceinline__ float round_bf16(float v) {
-  unsigned u = __float_as_uint(v);
-  u += 0x7fffu + ((u >> 16) & 1u);  // round to nearest even (finite v)
-  return __uint_as_float(u & 0xffff0000u);
-}
 
 // Softmax of x / T at one pixel whose C classes lie `stride` floats apart.
 template <int NC>
@@ -149,21 +174,92 @@ __device__ __forceinline__ void softmax_at(const float* __restrict__ xp,
   }
 }
 
-// Max of key over the lanes of this warp that share the segment s: after
-// the step with offset d, a lane holds the max over [lane, lane + 2d) of
-// its contiguous run, so each run leader ends with its whole run.
-__device__ __forceinline__ u64 run_max(u64 key, int s, int lane) {
-  const unsigned full = 0xffffffffu;
-  for (int d = 1; d < 32; d <<= 1) {
-    const u64 other = __shfl_down_sync(full, key, d);
-    const int os = __shfl_down_sync(full, s, d);
-    if (lane + d < 32 && os == s && other > key) key = other;
-  }
-  return key;
-}
-
 constexpr int span_smem_bytes(int C) {
   return NSLOT * C * 8 + NSLOT * 4 + WARPS * 32 * 4 + WARPS * C * STAGE * 4;
+}
+
+// The span walk of K3 and K7, in pieces. NS is the slot count of the
+// block's shared table: NS * C keys (slot-major) and NS tags.
+template <int NS>
+__device__ __forceinline__ void clear_slots(u64* skeys, int* tags, int C) {
+  for (int i = threadIdx.x; i < NS * C; i += THREADS) skeys[i] = 0;
+  for (int i = threadIdx.x; i < NS; i += THREADS) tags[i] = EMPTY;
+}
+
+// The raster runs of a warp's 32 pixels or rows (s = -1 where invalid):
+// returns `starts`, whose bit j marks lane j as the first of a run; each
+// valid run's first lane claims its run's slot (slot = s mod NS, tag by
+// atomicCAS), and bit j of `held` says that lane j's run holds it.
+template <int NS>
+__device__ __forceinline__ unsigned claim_runs(int s, bool valid, int lane,
+                                               int* tags, unsigned& held) {
+  const unsigned full = 0xffffffffu;
+  const int up = __shfl_up_sync(full, s, 1);
+  const unsigned starts = __ballot_sync(full, lane == 0 || up != s);
+  bool mine = false;
+  if (valid && ((starts >> lane) & 1u)) {
+    const int t = atomicCAS(&tags[s & (NS - 1)], EMPTY, s);
+    mine = t == EMPTY || t == s;
+  }
+  held = __ballot_sync(full, mine);
+  return starts;
+}
+
+// Lane c walks class c over the warp's 32 staged values (st: (C, STAGE)
+// words, 4 per load; wsid: the 32 ids) and at the end of each valid run
+// merges its max and first argmax (global index w0 + lane, or wrow[lane]
+// where the warp's rows are not consecutive) into the run's slot, or
+// straight into the global table where another id holds the slot, so the
+// result stays exact whatever the ids are.
+template <int NS>
+__device__ __forceinline__ void walk_runs(const unsigned* st, const int* wsid,
+                                          unsigned starts, unsigned held,
+                                          unsigned w0, int lane, int C,
+                                          u64* skeys, u64* keys,
+                                          const int* wrow = nullptr) {
+  if (lane >= C) return;
+  const uint4* row = reinterpret_cast<const uint4*>(st + lane * STAGE);
+  unsigned best = 0;
+  int arg = 0, first = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint4 v4 = row[q];
+    const unsigned v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = 4 * q + k;
+      if ((starts >> j) & 1u) {
+        best = v[k];
+        arg = first = j;
+      } else if (v[k] > best) {
+        best = v[k];
+        arg = j;
+      }
+      if (j == 31 || ((starts >> (j + 1)) & 1u)) {
+        const int sj = wsid[j];
+        if (sj >= 0) {
+          const unsigned at =
+              wrow ? (unsigned)wrow[arg] : w0 + (unsigned)arg;
+          const u64 key = ((u64)best << 32) | (u64)(~at);
+          if ((held >> first) & 1u)
+            atomicMax(&skeys[(sj & (NS - 1)) * C + lane], key);
+          else
+            atomicMax(&keys[(long long)sj * C + lane], key);
+        }
+      }
+    }
+  }
+}
+
+// After the span: a slot key is non-zero only where a segment claimed the
+// slot; each goes to the global table with one atomicMax.
+template <int NS>
+__device__ __forceinline__ void flush_slots(const u64* skeys, const int* tags,
+                                            u64* keys, int C) {
+  for (int i = threadIdx.x; i < NS * C; i += THREADS) {
+    const u64 k = skeys[i];
+    if (k != 0) atomicMax(&keys[(long long)tags[i / C] * C + i % C], k);
+  }
 }
 
 // K3. Shared memory: NSLOT * C keys (slot-major), NSLOT tags, each warp's
@@ -183,8 +279,7 @@ __global__ void __launch_bounds__(THREADS) ssm_span_kernel(
   const int b = blockIdx.y;
   const int start = blockIdx.x * SPAN;
   const int end = min(start + SPAN, HW);
-  for (int i = threadIdx.x; i < NSLOT * C; i += THREADS) skeys[i] = 0;
-  for (int i = threadIdx.x; i < NSLOT; i += THREADS) tags[i] = EMPTY;
+  clear_slots<NSLOT>(skeys, tags, C);
   __syncthreads();
 
   const float* xb = x + (long long)b * C * HW;
@@ -202,114 +297,151 @@ __global__ void __launch_bounds__(THREADS) ssm_span_kernel(
     float p[K];
     if (valid) softmax_at<NC>(xb + hw, HW, C, inv_temp, p);
 
-    // raster runs: bit j of `starts` marks lane j as the first of a run;
-    // each valid run's first lane claims the run's slot
+    // raster runs and slot claims, then the values as (class, lane) words
     const unsigned w0 = pb + (unsigned)(hw - lane);
-    const int up = __shfl_up_sync(full, s, 1);
-    const unsigned starts = __ballot_sync(full, lane == 0 || up != s);
-    bool mine = false;
-    if (valid && ((starts >> lane) & 1u)) {
-      const int t = atomicCAS(&tags[s & (NSLOT - 1)], EMPTY, s);
-      mine = t == EMPTY || t == s;
-    }
-    const unsigned held = __ballot_sync(full, mine);
+    unsigned held;
+    const unsigned starts = claim_runs<NSLOT>(s, valid, lane, tags, held);
 #pragma unroll
     for (int c = 0; c < K; ++c) {
       if (c < C) st[c * STAGE + lane] = valid ? __float_as_uint(p[c]) : 0u;
     }
     sids[warp * 32 + lane] = s;
     __syncwarp();
-    if (lane < C) {
-      // lane c walks class c over the warp's 32 pixels, 4 per load, and
-      // at the end of each valid run merges its max and first argmax
-      const uint4* row = reinterpret_cast<const uint4*>(st + lane * STAGE);
-      unsigned best = 0;
-      int arg = 0, first = 0;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const uint4 v4 = row[q];
-        const unsigned v[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int j = 4 * q + k;
-          if ((starts >> j) & 1u) {
-            best = v[k];
-            arg = first = j;
-          } else if (v[k] > best) {
-            best = v[k];
-            arg = j;
-          }
-          if (j == 31 || ((starts >> (j + 1)) & 1u)) {
-            const int sj = sids[warp * 32 + j];
-            if (sj >= 0) {
-              const u64 key =
-                  ((u64)best << 32) | (u64)(~(w0 + (unsigned)arg));
-              if ((held >> first) & 1u)
-                atomicMax(&skeys[(sj & (NSLOT - 1)) * C + lane], key);
-              else
-                atomicMax(&keys[(long long)sj * C + lane], key);
-            }
-          }
-        }
-      }
-    }
+    walk_runs<NSLOT>(st, sids + warp * 32, starts, held, w0, lane, C, skeys,
+                     keys);
     __syncwarp();
   }
   __syncthreads();
-  // a slot key is non-zero only where a segment claimed the slot
-  for (int i = threadIdx.x; i < NSLOT * C; i += THREADS) {
-    const u64 k = skeys[i];
-    if (k != 0) atomicMax(&keys[(long long)tags[i / C] * C + i % C], k);
-  }
+  flush_slots<NSLOT>(skeys, tags, keys, C);
 }
 
-// K7: one thread per pre-scaled (P, C) row. Each value is rounded to bf16
-// on load (segment.py:394 feeds the TPU kernel bf16 rows), the softmax is
-// taken in float32 with a true division (segment_pallas.py:172-176), and
-// the keys go into the table as in K3.
-__global__ void __launch_bounds__(THREADS) ssm_rows_scatter_kernel(
-    const float* __restrict__ x, const int* __restrict__ sid,
-    u64* __restrict__ keys, int P, int C, int S) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
-  int s = p < P ? sid[p] : S;
-  const bool valid = s >= 0 && s < S;
-  if (!valid) s = -1;
-  if (__ballot_sync(full, valid) == 0) return;  // warp-uniform exit
+// K7's shared memory: ROWS_NSLOT * C keys (slot-major), ROWS_NSLOT tags,
+// and a warp's ids and rows of a step (32 each), its queue (64 ids, 64
+// rows) and its (C, STAGE) stage words (16-byte aligned: ROWS_NSLOT is a
+// multiple of 4).
+#define QUEUE 64
+#define ROWS_WARP_INTS (32 + 32 + 2 * QUEUE)
 
-  float e[MAXC];
-  float z = 0.f;
-  if (valid) {
-    const float* xp = x + p * C;
-    float m = -INFINITY;
+constexpr int rows_smem_bytes(int C) {
+  return ROWS_NSLOT * C * 8 + ROWS_NSLOT * 4 + WARPS * ROWS_WARP_INTS * 4 +
+         WARPS * C * STAGE * 4;
+}
+
+template <int NC, bool kWide>
+__global__ void __launch_bounds__(THREADS) ssm_rows_span_kernel(
+    const float* __restrict__ x, const int* __restrict__ sid,
+    u64* __restrict__ keys, int P, int C_, int S) {
+  typedef Unit<kWide> Un;
+  typedef typename Un::T U;
+  constexpr int F = Un::kFloats;
+  constexpr int K = Cls<NC>::kMax;
+  constexpr int KU = (K + F - 1) / F;  // units a row, at most
+  const int C = Cls<NC>::n(C_);
+  const int W = C / F;  // units a row
+  extern __shared__ u64 skeys[];
+  int* tags = reinterpret_cast<int*>(skeys + ROWS_NSLOT * C);
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned lt = (1u << lane) - 1u;  // lanes below this one
+  int* wsid = tags + ROWS_NSLOT + warp * ROWS_WARP_INTS;
+  int* wrow = wsid + 32;
+  int* qsid = wrow + 32;
+  int* qrow = qsid + QUEUE;
+  unsigned* st = reinterpret_cast<unsigned*>(tags + ROWS_NSLOT +
+                                             WARPS * ROWS_WARP_INTS) +
+                 warp * C * STAGE;
+  // the warp's share of the block's span
+  const int start = blockIdx.x * ROWS_SPAN + warp * (ROWS_SPAN / WARPS);
+  const int end = min(start + ROWS_SPAN / WARPS, P);
+  clear_slots<ROWS_NSLOT>(skeys, tags, C);
+  __syncthreads();
+
+  int next = start;         // the next chunk of 32 ids, loaded two ahead
+  int head = 0, count = 0;  // the queue of valid rows (warp-uniform)
+  int s1 = next + lane < end ? __ldg(sid + next + lane) : S;
+  int s2 = next + 32 + lane < end ? __ldg(sid + next + 32 + lane) : S;
+  while (true) {
+    // queue valid rows until a step's worth is there or the share ends
+    while (count < 32 && next < end) {
+      const int s = s1, r = next + lane;
+      s1 = s2;
+      next += 32;
+      s2 = next + 32 + lane < end ? __ldg(sid + next + 32 + lane) : S;
+      const bool valid = s >= 0 && s < S;
+      const unsigned vm = __ballot_sync(full, valid);
+      if (valid) {
+        const int at = (head + count + __popc(vm & lt)) % QUEUE;
+        qsid[at] = s;
+        qrow[at] = r;
+      }
+      count += __popc(vm);
+    }
+    if (count == 0) break;
+    __syncwarp();
+    const int n = min(count, 32);
+    const bool valid = lane < n;
+    int s = -1, row = 0;
+    if (valid) {
+      s = qsid[(head + lane) % QUEUE];
+      row = qrow[(head + lane) % QUEUE];
+    }
+    head = (head + n) % QUEUE;
+    count -= n;
+    // the lane's row, in flight during the run analysis
+    U h[KU];
+    if (valid) {
+      const U* xr = reinterpret_cast<const U*>(x + (long long)row * C);
 #pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c < C) {
-        e[c] = round_bf16(xp[c]);
-        m = fmaxf(m, e[c]);
+      for (int i = 0; i < KU; ++i) {
+        if (i < W) h[i] = __ldg(xr + i);
+      }
+    }
+    unsigned held;
+    const unsigned starts =
+        claim_runs<ROWS_NSLOT>(s, valid, lane, tags, held);
+    // bf16, max, expf and the sum in class order, then e / z
+    float e[K];
+    float z = 0.f;
+    if (valid) {
+      float f[F];
+#pragma unroll
+      for (int i = 0; i < KU; ++i) {
+        if (i < W) {
+          Un::get(h[i], f);
+#pragma unroll
+          for (int q = 0; q < F; ++q) e[F * i + q] = f[q];
+        }
+      }
+      float m = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        if (c < C) {
+          e[c] = round_bf16(e[c]);
+          m = fmaxf(m, e[c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        if (c < C) {
+          e[c] = expf(e[c] - m);
+          z += e[c];
+        }
       }
     }
 #pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c < C) {
-        e[c] = expf(e[c] - m);
-        z += e[c];
-      }
+    for (int c = 0; c < K; ++c) {
+      if (c < C)
+        st[c * STAGE + lane] = valid ? __float_as_uint(e[c] / z) : 0u;
     }
+    wsid[lane] = s;
+    wrow[lane] = row;
+    __syncwarp();
+    walk_runs<ROWS_NSLOT>(st, wsid, starts, held, 0u, lane, C, skeys, keys,
+                          wrow);
+    __syncwarp();
   }
-  const int prev = __shfl_up_sync(full, s, 1);
-  const bool leader = valid && (lane == 0 || prev != s);
-  const u64 lo = (u64)(~(unsigned)p);
-#pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    if (c < C) {
-      u64 key = 0;
-      if (valid) key = ((u64)__float_as_uint(e[c] / z) << 32) | lo;
-      key = run_max(key, s, lane);
-      if (leader) atomicMax(&keys[(long long)s * C + c], key);
-    }
-  }
+  __syncthreads();
+  flush_slots<ROWS_NSLOT>(skeys, tags, keys, C);
 }
 
 __global__ void ssm_decode_kernel(const u64* __restrict__ keys,
@@ -437,6 +569,25 @@ int launch_bwd(const float* x, const int* sid, const float* vals,
   return (int)cudaGetLastError();
 }
 
+template <int NC, bool kWide>
+int launch_rows_span(const float* x, const int* sid, u64* keys, int P, int C,
+                     int S, cudaStream_t stream) {
+  const int smem = rows_smem_bytes(C);
+  static int smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ssm_rows_span_kernel<NC, kWide>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = smem;
+  }
+  const unsigned blocks =
+      (unsigned)(((long long)P + ROWS_SPAN - 1) / ROWS_SPAN);
+  ssm_rows_span_kernel<NC, kWide><<<blocks, THREADS, smem, stream>>>(
+      x, sid, keys, P, C, S);
+  return (int)cudaGetLastError();
+}
+
 int launch_decode(const u64* keys, float* vals, int* pix, int S, int C,
                   int P, cudaStream_t stream) {
   long long n = (long long)S * C;
@@ -459,15 +610,26 @@ extern "C" int ssm_fwd(const float* x, const int* sid, u64* keys, float* vals,
   return launch_decode(keys, vals, pix, S, C, B * HW, stream);
 }
 
+// K7: nc = 20 (C == 20 compiled) or 0 (C at run time); wide asks for
+// 16-byte units, which need C % 4 == 0 and 16-byte aligned rows (the
+// wrapper checks; a choice they forbid is refused).
 extern "C" int ssm_rows_fwd(const float* x, const int* sid, u64* keys,
                             float* vals, int* pix, int P, int C, int S,
-                            cudaStream_t stream) {
+                            int nc, int wide, cudaStream_t stream) {
+  if ((nc != 0 && nc != C) || C < 1 || C > MAXC ||
+      (wide && (C % 4 != 0 || (uintptr_t)x % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
   if (P > 0) {
-    ssm_rows_scatter_kernel<<<(unsigned)(((long long)P + THREADS - 1) /
-                                         THREADS),
-                              THREADS, 0, stream>>>(x, sid, keys, P, C, S);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    const int err =
+        wide ? (nc == 20 ? launch_rows_span<20, true>(x, sid, keys, P, C, S,
+                                                       stream)
+                         : launch_rows_span<0, true>(x, sid, keys, P, C, S,
+                                                      stream))
+             : (nc == 20 ? launch_rows_span<20, false>(x, sid, keys, P, C, S,
+                                                        stream)
+                         : launch_rows_span<0, false>(x, sid, keys, P, C, S,
+                                                       stream));
+    if (err != 0) return err;
   }
   return launch_decode(keys, vals, pix, S, C, P, stream);
 }

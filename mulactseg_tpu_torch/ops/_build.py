@@ -6,8 +6,8 @@ Each csrc/<name>.cu is compiled on first use with
          -Xcompiler -fPIC
 
 plus the source's -D constants (DEFINES), into mulactseg_tpu_torch/_build/
-(git-ignored) as <name>-<hash>.so, where the hash covers the source and
-the flags, and loaded with ctypes. Every C
+(git-ignored) as <name>-<hash>.so, where the hash covers the source, the
+shared headers of csrc/ (*.cuh) and the flags, and loaded with ctypes. Every C
 entry point returns cudaGetLastError(); `check` raises on a non-zero code.
 `build_all` starts one nvcc per source at once, so a cold start costs the
 slowest file's compile rather than the sum.
@@ -63,6 +63,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 

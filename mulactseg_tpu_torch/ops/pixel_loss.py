@@ -6,8 +6,9 @@ Forward (K1, csrc/pixel_loss.cu pixel_ce_fwd; K9, pixel_ce_rows_fwd for
 rows) returns a (4,) float32 tensor (oh_nll_sum, oh_count, mh_nll_sum,
 mh_count), in one launch and bitwise reproducible; the backward (K2,
 pixel_ce_bwd; K10, pixel_ce_rows_bwd) recomputes the softmax from the
-inputs. Tensors on the CPU take the plain PyTorch versions below; CUDA
-tensors take the kernels or raise.
+inputs; K10 stages tiles of PIXELS_PER_BLOCK rows through shared memory.
+Tensors on the CPU take the plain PyTorch versions below; CUDA tensors
+take the kernels or raise.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ from mulactseg_tpu_torch.ops import _build
 
 EPS = 1e-8
 MAX_CLASSES = 31  # candidate bitmasks are int32
-# Pixels per block of every kernel here (4 per thread): csrc/pixel_loss.cu
-# is built with it as PIXELS, and K1's partials are sized by it.
+# Pixels per block of every kernel here (4 per thread; K10: rows per tile):
+# csrc/pixel_loss.cu is built with it as PIXELS, and K1's partials are
+# sized by it.
 PIXELS_PER_BLOCK = 512
 _build.DEFINES["pixel_loss"] = {"PIXELS": PIXELS_PER_BLOCK}
 # The class count compiled into the kernels (the stage-1 model's 19
@@ -111,6 +113,15 @@ def instance(xc, bits3):
         and xc.data_ptr() % 16 == 0 and bits3.data_ptr() % 16 == 0
 
 
+def rows_instance(x, bits):
+    """(nc, wide): K10's instance for (N, C) rows. wide is True where its
+    tiles can move 16-byte units: C % 4 == 0 and rows and bits 16-byte
+    aligned (dl, which the wrapper allocates, always is)."""
+    C = x.shape[1]
+    return compiled_classes(C), C % 4 == 0 and x.data_ptr() % 16 == 0 \
+        and bits.data_ptr() % 16 == 0
+
+
 _TICKETS: dict = {}
 
 
@@ -129,12 +140,12 @@ def _ticket(device):
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # pixel_ce_fwd(x, bits, partials, ticket, out, B, C, HW, temp, nc, vec,
 #              stream); pixel_ce_bwd(x, bits, g, dl, B, C, HW, temp, nc,
-# vec, stream); the rows entry points take N, C in place of B, C, HW and
-# no vec
+# vec, stream); the rows entry points take N, C in place of B, C, HW, K9
+# no vec and K10 its wide in place of vec
 _ARGTYPES = {"pixel_ce_fwd": [_VP] * 5 + [_I] * 3 + [_F] + [_I] * 2 + [_VP],
              "pixel_ce_bwd": [_VP] * 4 + [_I] * 3 + [_F] + [_I] * 2 + [_VP],
              "pixel_ce_rows_fwd": [_VP] * 5 + [_I] * 2 + [_F, _I, _VP],
-             "pixel_ce_rows_bwd": [_VP] * 4 + [_I] * 2 + [_F, _I, _VP]}
+             "pixel_ce_rows_bwd": [_VP] * 4 + [_I] * 2 + [_F, _I, _I, _VP]}
 
 
 def _lib():
@@ -210,10 +221,10 @@ def pixel_ce_rows_bwd(x, bits, g, temp: float):
     lib = _lib()
     N, C = x.shape
     dl = torch.empty_like(x)
+    nc, wide = rows_instance(x, bits)
     code = lib.pixel_ce_rows_bwd(x.data_ptr(), bits.data_ptr(), g.data_ptr(),
-                                 dl.data_ptr(), N, C, float(temp),
-                                 compiled_classes(C),
-                                 _build.stream_ptr(x.device))
+                                 dl.data_ptr(), N, C, float(temp), nc,
+                                 int(wide), _build.stream_ptr(x.device))
     _build.check(code, "pixel_ce_rows_bwd")
     _build.LAUNCHES["pixel_ce_rows_bwd"] += 1
     return dl

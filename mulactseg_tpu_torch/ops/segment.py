@@ -11,7 +11,8 @@ differentiable through the max values. Kernels, all in csrc/:
   NCHW forward past that, with bf16-rounded values as the reference has.
 - K4 (segment.cu ssm_bwd): the NCHW backward of both, a gather by the
   segment ids the forward saw.
-- K7 (segment.cu ssm_rows_fwd): the row forward.
+- K7 (segment.cu ssm_rows_fwd): the row forward, K3's span walk over
+  rows.
 - K8 (prereduce.cu, prereduce_softmax_rows) then K5: the row forward with
   prereduce=True. The row backward is plain PyTorch, as it is plain XLA
   in the reference.
@@ -43,7 +44,13 @@ BLOCK = 4  # raster-block width of the pre-reduction (the reference's R)
 # is built with them as SPAN and NSLOT; the card tests build ids around them.
 K3_SPAN = 512
 K3_SLOTS = 64
-_build.DEFINES["segment"] = {"SPAN": K3_SPAN, "NSLOT": K3_SLOTS}
+# The same for K7 over rows (ROWS_SPAN, a multiple of 256, and ROWS_NSLOT):
+# the fastest of a grid timed on an H100 (PERF.md; tools/segment_timing.py
+# --rows-span/--rows-slots).
+K7_SPAN = 2048
+K7_SLOTS = 16
+_build.DEFINES["segment"] = {"ROWS_SPAN": K7_SPAN, "ROWS_NSLOT": K7_SLOTS,
+                             "SPAN": K3_SPAN, "NSLOT": K3_SLOTS}
 
 
 def _softmax(xc, temp):
@@ -133,10 +140,10 @@ def _check(x, sid, num_segments):
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ssm_fwd(x, sid, keys, vals, pix, B, C, HW, S, 1/T, stream);
 # ssm_bwd(x, sid, vals, pix, g, dl, B, C, HW, S, 1/T, stream);
-# ssm_rows_fwd(x, sid, keys, vals, pix, P, C, S, stream)
+# ssm_rows_fwd(x, sid, keys, vals, pix, P, C, S, nc, wide, stream)
 _ARGTYPES = {"ssm_fwd": [_VP] * 5 + [_I] * 4 + [_F, _VP],
              "ssm_bwd": [_VP] * 6 + [_I] * 4 + [_F, _VP],
-             "ssm_rows_fwd": [_VP] * 5 + [_I] * 3 + [_VP]}
+             "ssm_rows_fwd": [_VP] * 5 + [_I] * 5 + [_VP]}
 # prereduce_nchw_fwd(x, sid, planes, choice, sid2, B, C, HW, S, 1/T, nc,
 #                    vec, stream);
 # prereduce_rows_fwd(x, sid, planes, choice, sid2, P, C, S, stream)
@@ -336,21 +343,32 @@ def ssm_rows_fwd_plain(scaled, sid, num_segments: int):
                              num_segments)
 
 
+def rows_instance(scaled):
+    """(nc, wide): K7's instance for (P, C) rows. nc as K1's
+    (pixel_loss.compiled_classes: 20 compiled, else 0 for C at run time);
+    wide is True where a warp can read its rows as 16-byte units: C % 4 ==
+    0 and the rows 16-byte aligned."""
+    C = scaled.shape[1]
+    return compiled_classes(C), C % 4 == 0 and scaled.data_ptr() % 16 == 0
+
+
 def ssm_rows_fwd(scaled, sid, num_segments: int):
     """K7: scaled (P, C) float32 rows (logits / T), sid (P,) int32. CPU
     tensors take the plain version; CUDA tensors the kernel."""
     if scaled.device.type == "cpu":
         return ssm_rows_fwd_plain(scaled, sid, num_segments)
     _check(scaled, sid, num_segments)
+    lib = _lib()
     P, C = scaled.shape
     S = num_segments
     keys = torch.zeros(S, C, device=scaled.device, dtype=torch.int64)
     vals = torch.empty(S, C, device=scaled.device)
     pix = torch.empty(S, C, device=scaled.device, dtype=torch.int32)
-    code = _lib().ssm_rows_fwd(scaled.data_ptr(), sid.data_ptr(),
-                               keys.data_ptr(), vals.data_ptr(),
-                               pix.data_ptr(), P, C, S,
-                               _build.stream_ptr(scaled.device))
+    nc, wide = rows_instance(scaled)
+    code = lib.ssm_rows_fwd(scaled.data_ptr(), sid.data_ptr(),
+                            keys.data_ptr(), vals.data_ptr(), pix.data_ptr(),
+                            P, C, S, nc, int(wide),
+                            _build.stream_ptr(scaled.device))
     _build.check(code, "ssm_rows_fwd")
     _build.LAUNCHES["ssm_rows_fwd"] += 1
     return vals, pix

@@ -29,7 +29,11 @@ differs from the plain one must pick a same-segment pixel whose float32
 probability is within 1e-6 of the plain pick's. K7 maxima to 1e-6 with
 argmax pixels held as K3's; the row op's gradient (its plain backward,
 which cancels in dl_elem - w p) against the CPU to 8 float32 ulps of its
-largest operand, C. K9 and K10 as K1 and K2.
+largest operand, C. K9 and K10 as K1 and K2. K7 and K10 also run each
+instance (C = 20 compiled or C at run time; 16-byte units, or 4-byte ones
+for rows a few floats off 16-byte alignment or C % 4 != 0) and must give
+the same bits on an offset view as on an aligned copy of it; K7's cases
+reach around its spans and slots (segment.K7_SPAN, K7_SLOTS) as K3's do.
 """
 
 import numpy as np
@@ -513,3 +517,111 @@ def test_pixel_ce_rows_kernels_match_plain(dev, N, C):
     assert (dl - want_dl).abs().max() <= 1e-6 * want_dl.abs().max()
     assert dict(_build.LAUNCHES) == {"pixel_ce_rows_fwd": 1,
                                      "pixel_ce_rows_bwd": 1}
+
+
+K7_SPAN, K7_SLOTS = segment.K7_SPAN, segment.K7_SLOTS
+
+
+def _rows_of(kind, rng, P, C):
+    """(rows divided by T, sid, S) for K7's cases:
+    runs     _rows (runs of 6 over 11 ids, ties between row pairs, 5%
+             invalid);
+    collide  runs of 4 whose ids are equal modulo K7_SLOTS in groups of
+             8, so most runs of a span find their slot held by another
+             id; 20% of runs invalid;
+    ties     runs of 6, plus one segment across the first span border whose
+             class-0 maximum is tied exactly between the last row of one
+             span and the first of the next."""
+    if kind == "runs":
+        return _rows(rng, P, C, False)
+    x = rng.randn(P, C).astype(np.float32)
+    if kind == "collide":
+        S = 8 * K7_SLOTS
+        r = np.arange(-(-P // 4))
+        sid = np.repeat((r * K7_SLOTS + r // 8) % S, 4)[:P]
+        sid = np.where(np.repeat(rng.rand(r.size) < 0.2, 4)[:P], S, sid)
+    else:
+        x, sid, S = _rows(rng, P, C, False)
+        x = x / 10
+        sid[K7_SPAN - 40:K7_SPAN + 40] = 3  # absent elsewhere
+        x[K7_SPAN - 40:K7_SPAN + 40, 0] = -10.0
+        x[K7_SPAN - 1, 0] = 5.0
+        x[K7_SPAN] = x[K7_SPAN - 1]
+    return (x * 10).astype(np.float32), sid.astype(np.int32), S
+
+
+def _offset_view(a, offset, dev):
+    """a (numpy) as a contiguous CUDA tensor `offset` floats into a larger
+    storage."""
+    store = torch.zeros(a.size + offset, dtype=torch.float32, device=dev)
+    store[offset:] = torch.from_numpy(a.reshape(-1)).to(dev)
+    return store[offset:].view(a.shape)
+
+
+@pytest.mark.parametrize("kind,P,C,offset,want", [
+    ("runs", 2 * 33 * 31, 20, 1, (20, False)),
+    ("runs", 4096 + 17, 8, 0, (0, True)), ("runs", 4096 + 17, 8, 2, (0, False)),
+    ("runs", 1000, 32, 4, (0, True)), ("runs", 1000, 31, 0, (0, False)),
+    ("collide", 2 * K7_SPAN + 100, 20, 0, (20, True)),
+    ("collide", 2 * K7_SPAN + 100, 20, 3, (20, False)),
+    ("ties", 2 * K7_SPAN, 20, 0, (20, True))])
+def test_segment_rows_kernel_instances(dev, kind, P, C, offset, want):
+    """K7 on each instance, held as in test_segment_rows_kernel_matches_plain
+    and bitwise equal to itself on an aligned copy of the rows."""
+    rng = np.random.RandomState(P + C + offset)
+    u, sid, S = _rows_of(kind, rng, P, C)
+    x = _offset_view(u, offset, dev)
+    sid = torch.from_numpy(sid).to(dev)
+    assert segment.rows_instance(x) == want
+    _build.reset_launches()
+    vals, pix = segment.ssm_rows_fwd(x, sid, S)
+    avals, apix = segment.ssm_rows_fwd(x.clone(), sid, S)
+    assert dict(_build.LAUNCHES) == {"ssm_rows_fwd": 2}
+    assert torch.equal(pix, apix)
+    assert torch.equal(vals.view(torch.int32), avals.view(torch.int32))
+    pvals, ppix = segment.ssm_rows_fwd_plain(x, sid, S)
+    absent = pix == P
+    assert torch.equal(absent, ppix == P) and (~absent).any()
+    assert (vals[absent] == 0).all()
+    assert (vals - pvals).abs().max() <= 1e-6
+    probs = torch.softmax(segment._round_bf16(x), dim=1)
+    q = pix[~absent].long()
+    cls = torch.arange(C, device=dev).expand(S, C)[~absent]
+    assert (probs[q, cls] - pvals[~absent]).abs().max() <= 1e-6
+    seg = torch.arange(S, device=dev)[:, None].expand(S, C)[~absent]
+    assert torch.equal(sid[q], seg)
+    if kind == "ties":
+        # the tie across the span border goes to the earlier row
+        assert pix[3, 0] == K7_SPAN - 1
+
+
+@pytest.mark.parametrize("N,C,offset,kind,want", [
+    (33 * 31, 20, 1, "mixed", (20, False)),
+    (4096 + 3, 8, 0, "mixed", (0, True)), (4096 + 3, 8, 2, "mixed", (0, False)),
+    (1000, 28, 4, "mixed", (0, True)), (700, 31, 0, "mixed", (0, False)),
+    (2 * 512 + 3, 20, 0, "dead", (20, True)),
+    (2 * 512 + 3, 20, 0, "live", (20, True))])
+def test_pixel_ce_rows_bwd_instances(dev, N, C, offset, kind, want):
+    """K10 on each instance (C = 28 and 31 need more than 48 KB of shared
+    memory a block), with a short last tile, against its plain version and
+    bitwise equal to itself on an aligned copy of the rows; dead rows get
+    exact zeros."""
+    rng = np.random.RandomState(N + C + offset)
+    xn = (rng.randn(N, C) * 3).astype(np.float32)
+    bn = _bits(rng, 1, C, N).reshape(N)
+    if kind != "mixed":
+        bn = np.where(bn == 0, 1, bn) if kind == "live" else np.zeros_like(bn)
+    x = _offset_view(xn, offset, dev)
+    bits = torch.from_numpy(bn.astype(np.int32)).to(dev)
+    assert pixel_loss.rows_instance(x, bits) == want
+    g = torch.tensor([2.0, 3.0], device=dev)
+    _build.reset_launches()
+    dl = pixel_loss.pixel_ce_rows_bwd(x, bits, g, 0.1)
+    adl = pixel_loss.pixel_ce_rows_bwd(x.clone(), bits, g, 0.1)
+    assert dict(_build.LAUNCHES) == {"pixel_ce_rows_bwd": 2}
+    assert torch.equal(dl.view(torch.int32), adl.view(torch.int32))
+    want_dl = pixel_loss.pixel_ce_bwd_plain(x.t()[None], bits[None, None], g,
+                                            0.1)[0].t()
+    assert (dl - want_dl).abs().max() <= 1e-6 * want_dl.abs().max()
+    assert (dl[bits == 0] == 0).all()
+    assert bool((dl != 0).any()) == (kind != "dead")
