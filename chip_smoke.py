@@ -65,6 +65,30 @@
    9217, so K6 and K5; about 8 pixels per segment). Every gradient entry
    must lie within 1e-5 of the largest, except in a segment holding a K6
    value that rounds to bf16 the other way on the card.
+8a. The active-learning main path, from a file of the seeded weights
+   named like the recipe's ImageNet init (so the final classifier is
+   stripped): run_al_rounds for 2 rounds on a SyntheticRegionDataset at
+   768x768, nseg 2048, 19 classes (pool and label sets of AL_POOL images,
+   val and eval sets of AL_VAL), my_random then
+   my_bvsb_predclsbal_pwr_banignore with a budget of AL_BUDGET clicks,
+   AL_ITRS stage-1 steps a round with the val_period gate firing twice
+   (best-val checkpoints, the best one reloaded before eval); then the
+   recipe's cosprop_includeonehot pseudo-labelling of the label set with
+   round 2's best checkpoint (every PNG decoded and compared), and stage 2:
+   AL_ITRS CE steps (active_predignore) on RegionDatasetPlbl over the
+   images written as RGB PNGs and those PNGs, from the classifier-stripped
+   init file, then eval. Every launch counter is set to 0 just before the
+   rounds and read just after, and again around the pseudo-labelling and
+   stage 2: K1-K4 once per stage-1 step, K5 once per pseudo-labelled
+   image, no kernel in selection or stage 2. Outside those windows K5 is
+   held bitwise against its plain version (values and argmax pixels) on
+   one label-set image's softmax planes and ids at 768x768, built as the
+   generator builds them. The datalists, selections
+   and checkpoints must exist, round 2 must select its budget, a
+   checkpoint loaded back must be bitwise what was saved, and the losses
+   must be finite. Then the paper's selector on the card against the CPU
+   on two 96x80 images in float32 with the same weights: scores within
+   1e-4, the same selected regions.
 9. Reloads the seeded weights and, at full resolution (1x3x1024x2048,
    nseg 2048), holds K5 against its plain version, bitwise, on the
    softmax planes of an eval forward with ~30% of superpixels selected,
@@ -88,7 +112,10 @@
    device time per step by kind of kernel and of each loss kernel, the
    top kernels and the device's idle share. Every timed run comes before these passes.
 
-Prints, before the last line, the slices' numbers and one JSON line with
+Prints, before the last line, the slices' numbers (the al_rounds line:
+per round the selection seconds, train img/s, validations, eval mIoU,
+checkpoint save and load seconds; then plbl img/s, stage-2 img/s and mIoU,
+peak memory and the card) and one JSON line with
 each kernel's check and times (K5 twice: at plbl's shapes and on K6's
 planes), its launches on each main path (launches_by_path) and their sum
 (launches); the last line is
@@ -119,6 +146,9 @@ B, NUM_CLASSES, H, W, NSEG = 4, 20, 768, 768, 2048
 NSEG_LARGE, WARMUP_LARGE, TIMED_LARGE = 4096, 2, 10  # past the K3 guard
 PH, PW, PLBL_IMAGES, EVAL_IMAGES = 1024, 2048, 8, 4  # plbl/eval resolution
 WARMUP, TIMED, WINDOW = 3, 20, 5
+# the active-learning phase: 768x768 grid-superpixel fixture at nseg 2048,
+# pool and label sets of AL_POOL images, val and eval sets of AL_VAL
+AL_POOL, AL_VAL, AL_ITRS, AL_VAL_PERIOD, AL_BUDGET = 8, 4, 12, 6, 3000
 TIMING_RUNS, REPEATS = 20, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -1056,6 +1086,24 @@ def plbl_fixture(n, seed):
     return batches, suppix
 
 
+def check_k5(values, sid, name):
+    """K5 on (P, C) values under (P,) ids against its plain version: the
+    argmax pixels and the max values bitwise, with present and absent
+    segments among the NSEG. Returns the max abs error."""
+    from mulactseg_tpu_torch.ops import segment_max
+
+    vals, pix = segment_max.seg_max_fwd(values, sid, NSEG)
+    pvals, ppix = segment_max.segment_max_plain(values, sid, NSEG)
+    torch.cuda.synchronize()
+    P = values.shape[0]
+    check(torch.equal(pix, ppix), f"K5 argmax pixels differ ({name})")
+    check(torch.equal(vals.view(torch.int32), pvals.view(torch.int32)),
+          f"K5 max values differ bitwise ({name})")
+    check(bool((pix < P).any()) and bool((pix == P).any()),
+          f"K5 case {name} lacks present or absent segments")
+    return (vals - pvals).abs().max().item()
+
+
 def k5_checks(model, dev):
     """K5 against its plain version at the pseudo-labeller's shapes:
     the softmax planes of a full-resolution eval forward with ~30% of
@@ -1077,17 +1125,8 @@ def k5_checks(model, dev):
         np.int32)).to(dev)
     gen = torch.Generator(dev).manual_seed(0)
     signed = torch.round(torch.randn(P, C, device=dev, generator=gen) * 8) / 8
-    err = 0.0
-    for name, values in (("softmax planes", planes), ("signed/8", signed)):
-        vals, pix = segment_max.seg_max_fwd(values, sid, NSEG)
-        pvals, ppix = segment_max.segment_max_plain(values, sid, NSEG)
-        torch.cuda.synchronize()
-        check(torch.equal(pix, ppix), f"K5 argmax pixels differ ({name})")
-        check(torch.equal(vals.view(torch.int32), pvals.view(torch.int32)),
-              f"K5 max values differ bitwise ({name})")
-        check(bool((pix < P).any()) and bool((pix == P).any()),
-              f"K5 case {name} lacks present or absent segments")
-        err = max(err, (vals - pvals).abs().max().item())
+    err = max(check_k5(planes, sid, "softmax planes"),
+              check_k5(signed, sid, "signed/8"))
     del signed
     n_valid = int((sid < NSEG).sum())
     print(f"K5 bitwise equal to its plain version on both inputs; "
@@ -1251,6 +1290,343 @@ def small_plbl_check(dev):
     return differ
 
 
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _state_equal(payload, model, optimizer, step):
+    """The checkpoint payload holds bitwise the model's and optimizer's
+    state and the step."""
+    if payload["step"] != step:
+        return False
+    sd = model.state_dict()
+    if payload["model_state_dict"].keys() != sd.keys() or not all(
+            torch.equal(payload["model_state_dict"][k], v.cpu())
+            for k, v in sd.items()):
+        return False
+    want, got = optimizer.state_dict(), payload["optimizer_state_dict"]
+    if want["param_groups"] != got["param_groups"] or \
+            want["state"].keys() != got["state"].keys():
+        return False
+    return all(torch.equal(got["state"][i][k], v.cpu())
+               for i, st in want["state"].items() for k, v in st.items())
+
+
+def al_rounds_slice(variables, dev, smi, workdir):
+    """The active-learning main path (docstring, item 8a): 2 rounds, the
+    pseudo-labelling of the label set and stage 2, timed per part with
+    wrappers around the trainer's and the selectors' methods, the launch
+    counters read around each part. Returns (the al_rounds line, the
+    path's launches)."""
+    from mulactseg_tpu_torch.acquisition import selectors
+    from mulactseg_tpu_torch.active import RegionActiveSet
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.data.datasets import RegionDatasetPlbl
+    from mulactseg_tpu_torch.data.loader import DataProvider
+    from mulactseg_tpu_torch.data.synthetic import SyntheticRegionDataset
+    from mulactseg_tpu_torch.engine import rounds
+    from mulactseg_tpu_torch.engine.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from mulactseg_tpu_torch.engine.evaluate import eval_forward
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.models.factory import get_model
+    from mulactseg_tpu_torch.ops import _build
+    from mulactseg_tpu_torch.plbl.generator import (
+        PseudoLabelGenerator,
+        plbl_save_dir,
+    )
+    from mulactseg_tpu_torch.utils.png import read_gray8, write_rgb8
+
+    sel2 = "my_bvsb_predclsbal_pwr_banignore"
+    common = dict(num_classes=NUM_CLASSES - 1, nseg=NSEG, crop_size=(H, W),
+                  train_batch_size=B, dtype="bfloat16", separable_conv=True,
+                  finetune_itrs=AL_ITRS, val_period=AL_VAL_PERIOD,
+                  val_start=0, log_period=AL_ITRS // 3, val_batch_size=B,
+                  num_workers=4, val_num_workers=4)
+    cfg = Config(method="active_joint_multi_predignore_lossdecomp",
+                 max_iterations=2, active_selection_size=AL_BUDGET,
+                 init_active_method="my_random", active_method=sel2,
+                 model_save_dir=os.path.join(workdir, "run"), **common)
+    t0 = time.perf_counter()
+    model = get_model(cfg.model, cfg.num_model_classes, cfg.output_stride,
+                      separable_conv=True, device=dev)
+    convert.load_variables(model, variables)
+    init = os.path.join(workdir, "deeplab_resnet50deepstem_imagenet_"
+                        "pretrained_seed0.pth")
+    save_checkpoint(init, model)
+    del model
+
+    def dataset(split, n, seed):
+        return SyntheticRegionDataset(n_images=n, H=H, W=W,
+                                      num_classes=NUM_CLASSES - 1, nseg=NSEG,
+                                      split=split, seed=seed)
+
+    pool = dataset("active-ulabel", AL_POOL, 7)
+    label = dataset("active-label", AL_POOL, 7)
+    label.suppix, label.im_idx = {}, []
+    val, evalset = dataset("val", AL_VAL, 8), dataset("val", AL_VAL, 9)
+    active = RegionActiveSet(cfg, pool, label)
+    setup_s = time.perf_counter() - t0
+
+    per_round = {r: {"select_s": [], "train_s": [], "train_img_per_s": [],
+                     "validations": 0, "save_s": [], "load_s": []}
+                 for r in (1, 2)}
+    losses, checked = [], []
+    real = {"train": rounds.ALTrainer.train, "save": rounds.ALTrainer.save,
+            "load": rounds.ALTrainer.load,
+            "validate": rounds.ALTrainer.validate,
+            "select": selectors.RegionSelector.select_next_batch}
+
+    def timed(fn, key):
+        def wrapper(self, *a, **k):
+            _sync(dev)
+            t1 = time.perf_counter()
+            out = fn(self, *a, **k)
+            _sync(dev)
+            per_round[self.selection_iter][key].append(
+                time.perf_counter() - t1)
+            return out
+        return wrapper
+
+    def train(self, *a, **k):
+        t1 = time.perf_counter()
+        rate = real["train"](self, *a, **k)
+        per_round[self.selection_iter]["train_s"].append(
+            time.perf_counter() - t1)
+        per_round[self.selection_iter]["train_img_per_s"].append(rate)
+        return rate
+
+    def save(self, path=None):
+        timed(real["save"], "save_s")(self, path)
+        if not checked:  # the first checkpoint, loaded back
+            checked.append(_state_equal(
+                load_checkpoint(path or self.checkpoint_file), self.model,
+                self.optimizer, self.step))
+
+    def validate(self, trainiter):
+        per_round[self.selection_iter]["validations"] += 1
+        return real["validate"](self, trainiter)
+
+    def select(self, trainer, active_set, n):
+        _sync(dev)
+        t1 = time.perf_counter()
+        out = real["select"](self, trainer, active_set, n)
+        per_round[active_set.selection_iter]["select_s"].append(
+            time.perf_counter() - t1)
+        return out
+
+    rounds.ALTrainer.train, rounds.ALTrainer.save = train, save
+    rounds.ALTrainer.load = timed(real["load"], "load_s")
+    rounds.ALTrainer.validate = validate
+    selectors.RegionSelector.select_next_batch = select
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        results = rounds.run_al_rounds(
+            cfg, active, val_dataset=val, eval_dataset=evalset,
+            init_checkpoint=init, device=dev,
+            metrics_cb=lambda it, aux: losses.append(aux))
+        _sync(dev)
+        rounds_s = time.perf_counter() - t0
+        round_launches = dict(_build.LAUNCHES)
+    finally:
+        rounds.ALTrainer.train, rounds.ALTrainer.save = (real["train"],
+                                                         real["save"])
+        rounds.ALTrainer.load = real["load"]
+        rounds.ALTrainer.validate = real["validate"]
+        selectors.RegionSelector.select_next_batch = real["select"]
+    steps = 2 * AL_ITRS
+    check(round_launches == {k: steps for k in STAGE1_KERNELS},
+          f"al rounds launches {round_launches}, want each of "
+          f"{STAGE1_KERNELS} once per stage-1 step ({steps}) and no other")
+    check(checked == [True], "a checkpoint loaded back differs from the "
+          "state that was saved")
+    check(len(losses) == 6 and all(math.isfinite(v) for aux in losses
+                                   for v in aux.values()),
+          f"bad round losses {losses}")
+    check(sorted(results) == [1, 2] and all(
+        math.isfinite(m) for m in results.values()), f"bad mIoU {results}")
+    run = cfg.model_save_dir
+    for f in ("datalist_01.json", "datalist_02.json",
+              "my_random_selection_01.json", f"{sel2}_selection_02.json",
+              "checkpoint01", "checkpoint02"):
+        check(os.path.exists(os.path.join(run, f)), f"missing {f}")
+    for r in (1, 2):
+        check(per_round[r]["validations"] == AL_ITRS // AL_VAL_PERIOD,
+              f"round {r}: {per_round[r]['validations']} validations")
+    with open(os.path.join(run, f"{sel2}_selection_02.json")) as f:
+        chosen = json.load(f)
+    clicks = [int(label.multi_hot_cls[label.id_to_index[p.split(",")[1]
+                                                        .split(".")[0]],
+                                      i].sum()) for _, p, i in chosen]
+    check(sum(clicks[:-1]) <= AL_BUDGET < sum(clicks),
+          f"round 2 selected {sum(clicks)} clicks in {len(chosen)} regions "
+          f"for a budget of {AL_BUDGET}")
+
+    # pseudo-labelling of the label set with round 2's best checkpoint
+    pcfg = Config(num_classes=NUM_CLASSES - 1, nseg=NSEG, dtype="bfloat16",
+                  method=cfg.method)
+    model = get_model(cfg.model, cfg.num_model_classes, cfg.output_stride,
+                      separable_conv=True, device=dev)
+    ckpt2 = os.path.join(run, "checkpoint02")
+    model.load_state_dict(load_checkpoint(ckpt2)["model_state_dict"])
+    gen = PseudoLabelGenerator(model, pcfg, "cosprop_includeonehot",
+                               device=dev)
+    plbl_dir = plbl_save_dir(ckpt2, "cosprop_includeonehot", "02")
+    loader = DataProvider(label, 1, shuffle=False, drop_last=False,
+                          infinite=False, num_workers=2)
+    _sync(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    plbl_miou = gen.generate(None, loader, save_dir=plbl_dir,
+                             suppix=label.suppix)[0]
+    _sync(dev)
+    plbl_s = time.perf_counter() - t0
+    plbl_launches = dict(_build.LAUNCHES)
+    loader.close()
+    n_lbl = len(label)
+    check(n_lbl == AL_POOL and plbl_launches == {"seg_max_fwd": n_lbl},
+          f"plbl of {n_lbl} images launched {plbl_launches}, want "
+          "seg_max_fwd once per image")
+    check(math.isfinite(plbl_miou), f"bad plbl mIoU {plbl_miou}")
+    for i in range(n_lbl):
+        b = {k: (v[None] if isinstance(v, np.ndarray) else [v])
+             for k, v in label[i].items()}
+        want = gen.plbl_for_batch(b, label.suppix).to(torch.uint8).cpu()
+        path = os.path.join(plbl_dir, b["fnames"][0][1])
+        check(np.array_equal(read_gray8(path), want.numpy()),
+              f"{path} does not decode to the generator's map")
+    # K5 at this path's shapes, outside the counted windows: one label-set
+    # image's softmax planes and ids, built as plbl_for_batch builds them
+    b = {k: (v[None] if isinstance(v, np.ndarray) else [v])
+         for k, v in label[0].items()}
+    pixel_valid = gen.host_prep(b, label.suppix)[-1]
+    _, logits = eval_forward(model, b["images"], gen.dev, gen.autocast,
+                             return_feat=True, feat_bf16=gen.sim_bf16)
+    planes = torch.softmax(logits[0].float(), dim=0).reshape(
+        NUM_CLASSES, H * W).t()
+    sid = torch.from_numpy(np.where(pixel_valid, b["spx"][0].reshape(-1),
+                                    NSEG).astype(np.int32)).to(dev)
+    k5_err = check_k5(planes, sid, f"al_rounds label image, {H}x{W}")
+    print(f"K5 bitwise equal to its plain version on a label-set image "
+          f"({H}x{W}, {int((sid < NSEG).sum())} of {H * W} pixels valid)",
+          flush=True)
+    del gen, model, logits, planes
+
+    # stage 2 on the pseudo-labels, the images read back from RGB PNGs
+    im_idx = []
+    for key in label.im_idx:
+        img = os.path.join(workdir, "images", key[0])
+        os.makedirs(os.path.dirname(img), exist_ok=True)
+        write_rgb8(img, label.images[label.id_to_index[key[1].split(".")[0]]])
+        im_idx.append([img, key[1], key[2]])
+    s2cfg = Config(method="active_predignore", stage2=True,
+                   model_save_dir=run, **common)
+    stage2 = RegionDatasetPlbl(s2cfg, im_idx, plbl_dir)
+
+    class Stage2Set:
+        def get_trainset(self):
+            return stage2
+
+    s2losses = []
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    trainer = rounds.ALTrainer(s2cfg, 2, val_dataset=val,
+                               eval_dataset=evalset, device=dev)
+    trainer.load(init)
+    check(torch.equal(trainer.model.classifier.proxy.detach().cpu(),
+                      get_model(cfg.model, cfg.num_model_classes,
+                                cfg.output_stride, separable_conv=True,
+                                device="cpu").classifier.proxy.detach()),
+          "stage 2: the init file's classifier was not stripped")
+    trainer.checkpoint_file = os.path.join(run, "stage2_checkpoint02")
+    s2_rate = trainer.train(Stage2Set(), metrics_cb=lambda it, aux:
+                            s2losses.append(aux))
+    if trainer.best_iou == 0.0:
+        trainer.save()
+    s2_miou, _ = trainer.eval()
+    _sync(dev)
+    s2_s = time.perf_counter() - t0
+    s2_launches = dict(_build.LAUNCHES)
+    check(s2_launches == {}, f"stage 2 launched kernels {s2_launches}")
+    check(len(s2losses) == 3 and all(math.isfinite(a["train_loss"])
+                                     for a in s2losses),
+          f"bad stage-2 losses {s2losses}")
+    check(os.path.exists(trainer.checkpoint_file) and math.isfinite(s2_miou),
+          f"stage 2: no checkpoint or bad mIoU {s2_miou}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del trainer
+    torch.cuda.empty_cache()
+
+    line = {"al_rounds": {
+        "card": smi, "config": f"{cfg.model} separable, {NUM_CLASSES} "
+        f"outputs, bf16, batch {B}, {H}x{W}, nseg {NSEG}, pool {AL_POOL}, "
+        f"val/eval {AL_VAL}, {AL_ITRS} steps a round, budget {AL_BUDGET} "
+        "clicks", "setup_s": setup_s, "rounds_s": rounds_s,
+        "rounds": {r: {"select_s": sum(v["select_s"]),
+                       "train_img_per_s": v["train_img_per_s"][0],
+                       "train_s": v["train_s"][0],
+                       "validations": v["validations"],
+                       "eval_miou": results[r],
+                       "checkpoint_save_s": v["save_s"],
+                       "checkpoint_load_s": v["load_s"]}
+                   for r, v in per_round.items()},
+        "round2_regions": len(chosen), "round2_clicks": sum(clicks),
+        "plbl_img_per_s": n_lbl / plbl_s, "plbl_miou": plbl_miou,
+        "stage2_img_per_s": s2_rate, "stage2_s": s2_s,
+        "stage2_miou": s2_miou, "stage2_loss": s2losses[-1]["train_loss"],
+        "k5_max_abs_err": k5_err, "peak_mem_gib": peak_gib}}
+    launches = Counter(round_launches) + Counter(plbl_launches)
+    return line, dict(launches)
+
+
+def small_selector_check(dev, variables):
+    """The paper's selector on the card against the CPU: the full-width
+    model with the seeded weights in float32 (TF32 off) on two 96x80
+    images, nseg 24; scores within 1e-4, the same selected regions."""
+    from mulactseg_tpu_torch.acquisition import get_selector
+    from mulactseg_tpu_torch.active import RegionActiveSet
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.data.synthetic import SyntheticRegionDataset
+    from mulactseg_tpu_torch.engine.rounds import ALTrainer
+    from mulactseg_tpu_torch.models import convert
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for d in ("cpu", dev):
+            cfg = Config(num_classes=NUM_CLASSES - 1, nseg=24,
+                         dtype="float32", separable_conv=True,
+                         val_batch_size=2, val_num_workers=1,
+                         model_save_dir=os.path.join(tmp, str(d)))
+            kw = dict(n_images=2, H=96, W=80, num_classes=NUM_CLASSES - 1,
+                      nseg=24, seed=5)
+            pool = SyntheticRegionDataset(split="active-ulabel", **kw)
+            label = SyntheticRegionDataset(**kw)
+            label.suppix, label.im_idx = {}, []
+            trainer = ALTrainer(cfg, 2, device=d)
+            convert.load_variables(trainer.model, variables)
+            sel = get_selector("my_bvsb_predclsbal_pwr_banignore", cfg)
+            scores = sel.calculate_scores(trainer, pool)
+            sel.select_next_batch(trainer, RegionActiveSet(cfg, pool, label),
+                                  12)
+            out[str(d)] = (scores, label.suppix)
+    (cs, cl), (gs, gl) = out["cpu"], out[str(dev)]
+    err = max(abs(a[0] - b[0]) for a, b in zip(cs, gs))
+    check([s[1:] for s in cs] == [s[1:] for s in gs] and err <= 1e-4,
+          f"small selector: card scores differ from the CPU by {err}")
+    check(cl == gl and sum(len(v) for v in cl.values()) > 0,
+          f"small selector: card selected {gl}, CPU {cl}")
+    print(f"small selector (96x80, nseg 24, float32): scores within {err} "
+          f"of the CPU, the same {sum(len(v) for v in cl.values())} regions",
+          flush=True)
+    return err
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available()"
@@ -1391,11 +1767,20 @@ def main():
           f"K6 values round differently on the card, {bad} gradient entries "
           "outside 1e-5 (all in their segments)", flush=True)
 
+    # the active-learning main path (rounds, plbl, stage 2), from a file of
+    # the seeded weights; it comes before the first profiler pass too
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        al_line, al_launches = al_rounds_slice(variables, dev, smi, tmp)
+    small_selector_check(dev, variables)
+
     # evaluation and pseudo-labelling at 1024x2048, from the seeded weights
     # again (BN in eval mode reads the running statistics)
     torch.cuda.empty_cache()
     convert.load_variables(model, variables)
-    rows.append(k5_checks(model, dev))
+    name, err, *rest = k5_checks(model, dev)  # K5 also held at al_rounds'
+    rows.append((name, max(err, al_line["al_rounds"]["k5_max_abs_err"]),
+                 *rest))
     pcfg = Config(num_classes=NUM_CLASSES - 1, nseg=NSEG, dtype="bfloat16",
                   method=cfg.method)
     eval_stats = eval_slice(model, pcfg, dev)
@@ -1410,7 +1795,8 @@ def main():
     # each kernel's launches on each main path that runs it, and their sum
     by_path = {f"stage1_nseg{NSEG}": stage1_launches,
                f"stage1_nseg{NSEG_LARGE}": large_launches,
-               "plbl": plbl_launches, "row_ops": row_launches}
+               "plbl": plbl_launches, "row_ops": row_launches,
+               "al_rounds": al_launches}
     launches = sum((Counter(n) for n in by_path.values()), Counter())
     check(all(launches[name] > 0 for name in KERNELS),
           f"a kernel was never launched on a main path: {dict(launches)}")
@@ -1434,6 +1820,7 @@ def main():
         "timed_steps": TIMED_LARGE, "steps": large_steps,
         "peak_mem_gib": large_peak_gib, **large_losses}))
     print(json.dumps(plbl_stats))
+    print(json.dumps(al_line))
     kernels = []
     for label, err, ms, plain_ms, (bound_ms, bound_by), lib_ms in rows:
         # a kernel timed at a second shape is labelled name@shape

@@ -1,11 +1,14 @@
-"""Stage-1 training step: the port of mulactseg_tpu/engine/train.py for the
-fused lossdecomp criterion.
+"""Training and eval steps: the port of mulactseg_tpu/engine/train.py for
+the recipe's two criteria, the fused lossdecomp of stage 1
+(active_joint_multi_predignore_lossdecomp) and the plain temperature CE of
+stage 2 (active_predignore).
 
 One eager step per call: forward (BN in train mode, conv stack under
 bfloat16 autocast on the card as cfg.dtype="bfloat16" asks), the criterion
 on the float32 NCHW logits, backward, AdamW with per-group poly LR. The
-JAX package's K-step lax.scan only hides TPU dispatch latency and has no
-counterpart here.
+step moves to the device only the images and the keys its criterion
+reads. The JAX package's K-step lax.scan only hides TPU dispatch latency
+and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from mulactseg_tpu_torch.data.constants import IMAGENET_MEAN, IMAGENET_STD
 from mulactseg_tpu_torch.device import resolve_device
 from mulactseg_tpu_torch.engine.state import make_optimizer, set_lr
 from mulactseg_tpu_torch.losses.fused import lossdecomp_fused
+from mulactseg_tpu_torch.losses.standard import cross_entropy
 from mulactseg_tpu_torch.models.layers import Dropout, bn_frozen
 
 
@@ -37,11 +41,23 @@ def _lossdecomp_loss(cfg):
             coeff_gm=cfg.coeff_gm, multi_ce_temp=cfg.multi_ce_temp,
             group_ce_temp=cfg.group_ce_temp)
         return _zero_if_nan(total), aux
+    fn.keys = ("target_bits", "target", "spx")
+    return fn
+
+
+def _ce_loss(cfg):
+    """Stage 2: CE on the pseudo-label maps (train.py:108-113)."""
+    def fn(logits, batch):
+        loss = cross_entropy(logits, batch["labels"], temp=cfg.ce_temp,
+                             ignore_index=cfg.ignore_idx)
+        return loss, {"train_loss": loss}
+    fn.keys = ("labels",)
     return fn
 
 
 CRITERIA: Dict[str, Callable] = {
     "active_joint_multi_predignore_lossdecomp": _lossdecomp_loss,
+    "active_predignore": _ce_loss,
 }
 
 
@@ -62,23 +78,29 @@ def _device_normalize(x):
 
 
 def make_train_step(model: torch.nn.Module, cfg, device="cuda",
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    optimizer: Optional[torch.optim.Optimizer] = None):
     """Returns step(batch) -> aux dict of detached loss tensors (no host
-    sync). batch: 'images' (B, 3, H, W) float32 or uint8, 'target_bits'
-    (B, H, W) int32, 'target' (B, nseg, C) float32, 'spx' (B, H, W) int.
-    The step count, the optimizer (step.optimizer) and the dropout
-    generator live on the returned function."""
+    sync). batch: 'images' (B, 3, H, W) float32 or uint8 and the
+    criterion's keys: for lossdecomp 'target_bits' (B, H, W) int32,
+    'target' (B, nseg, C) float32 and 'spx' (B, H, W) int; for CE
+    'labels' (B, H, W) int. Other keys stay on the host. `optimizer`
+    defaults to make_optimizer(model, cfg). The step count (step.step,
+    which sets the poly LR; a caller restoring a checkpoint sets it), the
+    optimizer (step.optimizer) and the dropout generator live on the
+    returned function."""
     dev = resolve_device(device)
     criterion = get_criterion(cfg)
-    opt = make_optimizer(model, cfg)
+    opt = optimizer if optimizer is not None else make_optimizer(model, cfg)
+    keys = ("images",) + criterion.keys
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
     autocast = dev.type == "cuda" and cfg.dtype == "bfloat16"
 
     def step(batch):
-        batch = {k: torch.as_tensor(v).to(dev, non_blocking=True)
-                 for k, v in batch.items()}
+        batch = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True)
+                 for k in keys if k in batch}
         images = batch["images"]
         if images.dtype == torch.uint8:
             images = _device_normalize(images)
@@ -97,3 +119,19 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
     step.step = 0
     step.optimizer = opt
     return step
+
+
+def make_eval_step(model: torch.nn.Module, cfg, device="cuda"):
+    """Returns predict(images) -> eval-mode float32 NCHW logits on the
+    device (train.py:677-684): images (B, 3, H, W) uint8 or normalised
+    float32, the forward under bfloat16 autocast on the card when
+    cfg.dtype == "bfloat16"."""
+    from mulactseg_tpu_torch.engine.evaluate import eval_forward
+
+    dev = resolve_device(device)
+    autocast = dev.type == "cuda" and cfg.dtype == "bfloat16"
+
+    def predict(images):
+        return eval_forward(model, images, dev, autocast)
+
+    return predict

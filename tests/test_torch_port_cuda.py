@@ -34,6 +34,11 @@ instance (C = 20 compiled or C at run time; 16-byte units, or 4-byte ones
 for rows a few floats off 16-byte alignment or C % 4 != 0) and must give
 the same bits on an offset view as on an aligned copy of it; K7's cases
 reach around its spans and slots (segment.K7_SPAN, K7_SLOTS) as K3's do.
+Selection and checkpoints have no kernel, but run on the card: the
+scoring functions and the paper's selector are held against the CPU
+(top-1 ids, votes and selected regions exactly, scores within 1e-5, as
+the card's atomics add the segment sums in another order), and a
+checkpoint of a model and AdamW state on the card loads back bitwise.
 """
 
 import numpy as np
@@ -625,3 +630,115 @@ def test_pixel_ce_rows_bwd_instances(dev, N, C, offset, kind, want):
     assert (dl - want_dl).abs().max() <= 1e-6 * want_dl.abs().max()
     assert (dl[bits == 0] == 0).all()
     assert bool((dl != 0).any()) == (kind != "dead")
+
+
+# -- selection and checkpoints on the card (no kernel of their own) ----------
+
+def test_scoring_on_card_matches_cpu(dev):
+    """The scoring functions on the card against the CPU on the same
+    logits, with exact ties in the top-1 class and absent regions: top-1
+    ids, votes and the absent regions' 0.0 exactly, float values within
+    1e-5 (atomics add the segment sums in another order)."""
+    from mulactseg_tpu_torch.acquisition import scoring
+
+    rng = np.random.RandomState(21)
+    B, C, H, W, nseg = 3, 20, 37, 29, 40
+    logits = (rng.randn(B, C, H, W) * 3).astype(np.float32)
+    tie = rng.rand(B, H, W) < 0.1
+    logits[:, 2] = np.where(tie, logits.max(axis=1), logits[:, 2])
+    logits[:, 5] = np.where(tie, logits.max(axis=1), logits[:, 5])
+    spx = rng.randint(0, nseg - 2, (B, H, W)).astype(np.int32)
+    out = {}
+    for d in ("cpu", dev):
+        lt = torch.from_numpy(logits).to(d)
+        st = torch.from_numpy(spx).to(d)
+        bv, t1 = scoring.bvsb_top1(lt, 0.1)
+        w = scoring.cls_weight_pwr(scoring.mean_softmax(lt, 0.1), 8.0)
+        r, v = scoring.region_weighted_bvsb_and_votes(lt, st, w, nseg=nseg,
+                                                      temp=0.1)
+        plain = scoring.region_bvsb_scores(lt, st, nseg=nseg, temp=0.1,
+                                           drop_last=True)
+        n = scoring.minmax_normalize(plain)
+        out[str(d)] = [x.cpu() for x in (bv, t1, w, r, v, plain, n,
+                                         scoring.ban_ignore_dominant(n, v))]
+    cpu, card = out["cpu"], out[str(dev)]
+    for i in (1, 4):  # top-1 ids, votes
+        assert torch.equal(cpu[i], card[i]), i
+    for i in (0, 2, 3, 5, 6, 7):
+        assert (cpu[i] - card[i]).abs().max() <= 1e-5, i
+    for i in (3, 5):
+        assert (card[i][:, nseg - 2:] == 0).all()
+
+
+def test_selector_on_card_matches_cpu(dev, tmp_path):
+    """The paper's selector with a stub trainer whose logits lie on the
+    card, against the same logits on the CPU: the same regions in the
+    same order, scores within 1e-5."""
+    from mulactseg_tpu_torch.acquisition import get_selector
+    from mulactseg_tpu_torch.active import RegionActiveSet
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.data.synthetic import SyntheticRegionDataset
+
+    class Stub:
+        def __init__(self, d):
+            self.d = d
+
+        def predict_logits(self, images):
+            x = torch.as_tensor(images).to(self.d)
+            w = torch.linspace(-2.0, 2.0, 3 * 7, device=self.d).view(7, 3)
+            return torch.einsum("bchw,kc->bkhw", x, w) * 3
+
+    got = {}
+    for d in ("cpu", dev):
+        cfg = Config(num_classes=6, nseg=16, val_batch_size=3,
+                     val_num_workers=1, model_save_dir=str(tmp_path / str(d)))
+        kw = dict(n_images=5, H=40, W=36, num_classes=6, nseg=16, seed=2)
+        pool = SyntheticRegionDataset(split="active-ulabel", **kw)
+        label = SyntheticRegionDataset(**kw)
+        label.suppix, label.im_idx = {}, []
+        active = RegionActiveSet(cfg, pool, label)
+        sel = get_selector("my_bvsb_predclsbal_pwr_banignore", cfg)
+        scores = sel.calculate_scores(Stub(d), pool)
+        counts = sel.select_next_batch(Stub(d), active, 20)
+        got[str(d)] = (scores, counts, label.suppix)
+    (cs, cc, cl), (gs, gc, gl) = got["cpu"], got[str(dev)]
+    assert [s[1:] for s in cs] == [s[1:] for s in gs]
+    assert max(abs(a[0] - b[0]) for a, b in zip(cs, gs)) <= 1e-5
+    assert cc == gc and cl == gl and cc[0] > 0
+
+
+def test_checkpoint_round_trip_on_card(dev, tmp_path):
+    """A model and AdamW state on the card, saved and loaded back into a
+    fresh model and optimizer on the card: bitwise the same."""
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.engine.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from mulactseg_tpu_torch.engine.state import make_optimizer
+
+    def build(seed):
+        torch.manual_seed(seed)
+        m = torch.nn.Sequential(torch.nn.Conv2d(3, 8, 3),
+                                torch.nn.BatchNorm2d(8)).to(dev)
+        return m, make_optimizer(m, Config(), total_itrs=5)
+
+    model, opt = build(0)
+    for _ in range(2):
+        model(torch.randn(2, 3, 9, 9, device=dev)).square().mean().backward()
+        opt.step()
+    path = str(tmp_path / "checkpoint01")
+    save_checkpoint(path, model, opt, step=2)
+    payload = load_checkpoint(path)
+    fresh, fopt = build(1)
+    fresh.load_state_dict(payload["model_state_dict"])
+    fopt.load_state_dict(payload["optimizer_state_dict"])
+    assert payload["step"] == 2
+    for k, t in model.state_dict().items():
+        assert fresh.state_dict()[k].device.type == dev.type
+        assert torch.equal(fresh.state_dict()[k], t), k
+    a, b = opt.state_dict()["state"], fopt.state_dict()["state"]
+    assert a.keys() == b.keys() and len(a)
+    for i in a:
+        for k, t in a[i].items():
+            assert torch.equal(b[i][k].to(t.device), t), (i, k)

@@ -4,6 +4,7 @@ points refuse to run without a card unless the caller asks for the CPU.
 """
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -16,7 +17,8 @@ import mulactseg_tpu_torch
 from mulactseg_tpu_torch.config import Config
 from mulactseg_tpu_torch.device import resolve_device
 from mulactseg_tpu_torch.engine.evaluate import Evaluator
-from mulactseg_tpu_torch.engine.train import make_train_step
+from mulactseg_tpu_torch.engine.rounds import ALTrainer, run_al_rounds
+from mulactseg_tpu_torch.engine.train import make_eval_step, make_train_step
 from mulactseg_tpu_torch.models.factory import get_model
 from mulactseg_tpu_torch.ops import _build, pixel_loss, segment, segment_max
 from mulactseg_tpu_torch.plbl.generator import PseudoLabelGenerator
@@ -89,6 +91,31 @@ def test_entry_points_raise_without_cuda(no_card):
     assert callable(make_train_step(model, cfg, device="cpu"))
     assert Evaluator(model, cfg, device="cpu").dev.type == "cpu"
     assert PseudoLabelGenerator(model, cfg, device="cpu").dev.type == "cpu"
+
+
+def test_round_loop_entry_points_raise_without_cuda(no_card, tmp_path):
+    """ALTrainer, run_al_rounds and make_eval_step default to the card and
+    raise without one before they build anything; the options of later
+    items raise naming them."""
+    cfg = Config(model_save_dir=str(tmp_path), max_iterations=1)
+    model = torch.nn.Conv2d(3, 3, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ALTrainer(cfg, 1, model=model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_eval_step(model, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_al_rounds(cfg, active_set=type("A", (), {})())
+    assert ALTrainer(cfg, 1, model=model, device="cpu").dev.type == "cpu"
+    for kw, item in (({"n_devices": 2}, "item 17"),
+                     ({"profile": True}, "item 12")):
+        with pytest.raises(NotImplementedError, match=item):
+            ALTrainer(Config(**kw), 1, model=model, device="cpu")
+    trainer = ALTrainer(Config(method="eval_save_cosplbl_prop_includeonehot"),
+                        1, model=model, device="cpu")
+    assert trainer.train_step is None
+    with pytest.raises(RuntimeError, match="eval-only"):
+        trainer.train(None)
+    assert os.listdir(tmp_path) == []
 
 
 def test_port_path_imports_no_pil():

@@ -214,9 +214,10 @@ def test_optimizer_matches_optax_on_shared_gradients():
 
 
 def test_criteria_registry():
-    assert list(CRITERIA) == ["active_joint_multi_predignore_lossdecomp"]
+    assert list(CRITERIA) == ["active_joint_multi_predignore_lossdecomp",
+                              "active_predignore"]
     with pytest.raises(KeyError, match="available"):
-        get_criterion(Config(method="active_predignore"))
+        get_criterion(Config(method="active_joint_multi_lossdecomp"))
 
 
 def test_synthetic_and_bit_packer_copies_match_jax():
