@@ -76,8 +76,9 @@
    recipe's cosprop_includeonehot pseudo-labelling of the label set with
    round 2's best checkpoint (every PNG decoded and compared), and stage 2:
    AL_ITRS CE steps (active_predignore) on RegionDatasetPlbl over the
-   images written as RGB PNGs and those PNGs, from the classifier-stripped
-   init file, then eval. Every launch counter is set to 0 just before the
+   images written as RGB PNGs and those PNGs (its items built in the
+   loader's worker processes, started before the clock), from the
+   classifier-stripped init file, then eval. Every launch counter is set to 0 just before the
    rounds and read just after, and again around the pseudo-labelling and
    stage 2: K1-K4 once per stage-1 step, K5 once per pseudo-labelled
    image, no kernel in selection or stage 2. Outside those windows K5 is
@@ -89,6 +90,29 @@
    must be finite. Then the paper's selector on the card against the CPU
    on two 96x80 images in float32 with the same weights: scores within
    1e-4, the same selected regions.
+8b. The recipe's three commands over files (cli_recipe): a Cityscapes-
+   format tree written by tools/cityscapes_tree.py (CLI_TRAIN training
+   and CLI_VAL validation images at 1024x2048, adaptive-filtered RGB PNGs,
+   8-bit label ids, .pkl superpixels at nseg 2048, the multi-hot tensors
+   of tools/label_assignment with the 5x5 trim, the datalists and region
+   dict of tools/gen_datalists), the seeded weights saved as the recipe's
+   ImageNet init file, and the command lines of
+   mulactseg_tpu_torch/scripts/train_city_mul_res50.sh (recorded by a stub
+   `python`, so with the script's flags), cut to --finetune_itrs CLI_ITRS,
+   --val_period CLI_VAL_PERIOD, --max_iterations CLI_ROUNDS and
+   --active_selection_size at the recipe's 100,000 clicks for 2,975
+   images, run in order through train_al.main, then eval_al.main and
+   train_stage2.main for each of the CLI_ROUNDS rounds, on the card.
+   Every launch counter is set to 0 just before each command and read
+   just after: train_al launches K1-K4 once per stage-1 step, eval_al K5
+   once per labelled image, stage 2 nothing; one pseudo-label PNG per
+   labelled image, each decoding to a 1024x2048 map; finite losses and
+   mIoUs, every checkpoint written. Then the loader alone over fresh
+   copies of the training files, on worker processes and on threads, and
+   one item's time by part. Its line: per-command seconds, per round
+   train img/s (whole, first epoch with cold decode caches, the rest
+   warm, validations taken out), plbl img/s, stage-2 img/s and mIoU,
+   loader files/s, item ms by part, launches, peak GiB.
 9. Reloads the seeded weights and, at full resolution (1x3x1024x2048,
    nseg 2048), holds K5 against its plain version, bitwise, on the
    softmax planes of an eval forward with ~30% of superpixels selected,
@@ -115,7 +139,8 @@
 Prints, before the last line, the slices' numbers (the al_rounds line:
 per round the selection seconds, train img/s, validations, eval mIoU,
 checkpoint save and load seconds; then plbl img/s, stage-2 img/s and mIoU,
-peak memory and the card) and one JSON line with
+peak memory and the card; the cli_recipe line, item 8b) and one JSON line
+with
 each kernel's check and times (K5 twice: at plbl's shapes and on K6's
 planes), its launches on each main path (launches_by_path) and their sum
 (launches); the last line is
@@ -125,10 +150,12 @@ Any failure raises and exits non-zero; there is no CPU fallback.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -149,6 +176,11 @@ WARMUP, TIMED, WINDOW = 3, 20, 5
 # the active-learning phase: 768x768 grid-superpixel fixture at nseg 2048,
 # pool and label sets of AL_POOL images, val and eval sets of AL_VAL
 AL_POOL, AL_VAL, AL_ITRS, AL_VAL_PERIOD, AL_BUDGET = 8, 4, 12, 6, 3000
+# the recipe's commands over files: a generated Cityscapes-format tree of
+# CLI_TRAIN training and CLI_VAL validation images at PHxPW, the recipe's
+# flags cut to CLI_ROUNDS rounds of CLI_ITRS steps, validating every
+# CLI_VAL_PERIOD steps
+CLI_TRAIN, CLI_VAL, CLI_ITRS, CLI_VAL_PERIOD, CLI_ROUNDS = 16, 4, 12, 6, 2
 TIMING_RUNS, REPEATS = 20, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -1323,7 +1355,7 @@ def al_rounds_slice(variables, dev, smi, workdir):
     from mulactseg_tpu_torch.active import RegionActiveSet
     from mulactseg_tpu_torch.config import Config
     from mulactseg_tpu_torch.data.datasets import RegionDatasetPlbl
-    from mulactseg_tpu_torch.data.loader import DataProvider
+    from mulactseg_tpu_torch.data.loader import DataProvider, start_workers
     from mulactseg_tpu_torch.data.synthetic import SyntheticRegionDataset
     from mulactseg_tpu_torch.engine import rounds
     from mulactseg_tpu_torch.engine.checkpoint import (
@@ -1528,6 +1560,8 @@ def al_rounds_slice(variables, dev, smi, workdir):
     s2cfg = Config(method="active_predignore", stage2=True,
                    model_save_dir=run, **common)
     stage2 = RegionDatasetPlbl(s2cfg, im_idx, plbl_dir)
+    # its items are built in worker processes: start them before the clock
+    start_workers(s2cfg.num_workers)
 
     class Stage2Set:
         def get_trainset(self):
@@ -1585,6 +1619,314 @@ def al_rounds_slice(variables, dev, smi, workdir):
     return line, dict(launches)
 
 
+def recipe_commands(script, workdir, data_root):
+    """The commands the port's recipe script issues, in order, recorded by
+    a stub `python` on PATH (bash runs the script; nothing else runs)."""
+    rec = os.path.join(workdir, "argv.jsonl")
+    stub = os.path.join(workdir, "bin", "python")
+    os.makedirs(os.path.dirname(stub), exist_ok=True)
+    with open(stub, "w") as f:
+        f.write("#!/bin/bash\npython3 - \"$@\" <<'EOF'\nimport json, sys\n"
+                f"open({rec!r}, 'a').write(json.dumps(sys.argv[1:]) + "
+                "'\\n')\nEOF\n")
+    os.chmod(stub, 0o755)
+    env = dict(os.environ, PATH=f"{os.path.dirname(stub)}:{os.environ['PATH']}",
+               DATA_ROOT=data_root)
+    subprocess.run(["bash", str(HERE / "mulactseg_tpu_torch" / "scripts" /
+                                script)], check=True, env=env,
+                   capture_output=True)
+    with open(rec) as f:
+        return [json.loads(line) for line in f]
+
+
+def recipe_cut(argv, workdir, dl_dir, cuts):
+    """The recipe's command (`-m module` dropped) with the phase's cuts:
+    the flag values in `cuts` replaced, the checkpoint paths moved under
+    workdir, and the datalist directory of the generated tree."""
+    out = list(argv[2:])
+    for i, a in enumerate(out):
+        if a in cuts and i + 1 < len(out):
+            out[i + 1] = str(cuts[a])
+        elif a.startswith("checkpoint/"):
+            out[i] = os.path.join(workdir, a)
+    return out + ["--datalist_dir", dl_dir]
+
+
+class _Stamped:
+    """A train step that synchronises after each call and stamps its end;
+    every other attribute (the step count, the optimizer) is the step's."""
+
+    def __init__(self, fn, dev, stamps, losses):
+        self.__dict__.update(fn=fn, dev=dev, stamps=stamps, losses=losses)
+
+    def __call__(self, batch):
+        aux = self.fn(batch)
+        self.losses.append(float(aux["train_loss"]))
+        _sync(self.dev)
+        self.stamps.append(time.perf_counter())
+        return aux
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.fn, name, value)
+
+
+def _epoch_rates(rec, batch):
+    """Train img/s over the first epoch (cold decode cache) and over the
+    rest (warm), validation time taken out of each window."""
+    stamps, vals = rec["stamps"], rec["validations"]
+    steps = len(stamps) - 1
+    epoch = min(max(rec["images"] // batch, 1), steps)
+
+    def rate(a, b):
+        t = stamps[b] - stamps[a] - sum(t1 - t0 for t0, t1 in vals
+                                         if stamps[a] <= t0 < stamps[b])
+        return batch * (b - a) / t if b > a else None
+
+    return rate(0, epoch), rate(epoch, steps)
+
+
+def _loader_rate(ds, processes, workers):
+    """Items per second of one pass of a DataProvider over ds (batch B)."""
+    from mulactseg_tpu_torch.data.loader import DataProvider
+
+    t0 = time.perf_counter()
+    loader = DataProvider(ds, B, shuffle=False, drop_last=False,
+                          infinite=False, num_workers=workers,
+                          processes=processes)
+    n = sum(len(b["fnames"]) for b in loader)
+    loader.close()
+    return n / (time.perf_counter() - t0)
+
+
+def _fresh_copy(ds, root, dst):
+    """ds over copies of its files under dst (paths below root kept), so
+    no decode cache holds them."""
+    out = copy.copy(ds)
+    out.im_idx = [[os.path.join(dst, os.path.relpath(p, root)) for p in k]
+                  for k in ds.im_idx]
+    for old, new in zip(ds.im_idx, out.im_idx):
+        for a, b in zip(old, new):
+            os.makedirs(os.path.dirname(b), exist_ok=True)
+            shutil.copyfile(a, b)
+    out.suppix = {new[2]: ds.suppix[old[2]]
+                  for old, new in zip(ds.im_idx, out.im_idx)}
+    return out
+
+
+def cli_recipe_slice(variables, dev, smi, workdir):
+    """The recipe's three commands over files (docstring, item 8b): a
+    generated Cityscapes-format tree, the port recipe's command lines cut
+    to CLI_ROUNDS rounds, each run through its CLI's main(argv). Returns
+    (the cli_recipe line, the path's launches)."""
+    from mulactseg_tpu_torch.cli import eval_al, train_al, train_stage2
+    from mulactseg_tpu_torch.config import parse_config
+    from mulactseg_tpu_torch.data import datasets
+    from mulactseg_tpu_torch.data.loader import collate
+    from mulactseg_tpu_torch.data.transforms import get_train_transform
+    from mulactseg_tpu_torch.engine import rounds
+    from mulactseg_tpu_torch.engine.checkpoint import save_checkpoint
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.models.factory import get_model
+    from mulactseg_tpu_torch.ops import _build
+    from mulactseg_tpu_torch.plbl import generator
+    from mulactseg_tpu_torch.tools.cityscapes_tree import write_tree
+    from mulactseg_tpu_torch.utils.png import read_gray8, read_rgb8
+
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "data")
+    dl_dir = write_tree(root, CLI_TRAIN, CLI_VAL, PH, PW, NSEG, seed=0,
+                        encoding="adaptive", processes=os.cpu_count() or 1)
+    tree_s = time.perf_counter() - t0
+    cmds = recipe_commands("train_city_mul_res50.sh", workdir, root)
+    modules = ["train_al"] + ["eval_al", "train_stage2"] * 5
+    check([c[:2] for c in cmds] == [["-m", f"mulactseg_tpu_torch.cli.{m}"]
+                                    for m in modules],
+          f"the recipe issued {[c[:2] for c in cmds]}")
+    budget = round(CLI_TRAIN * 100_000 / 2_975)  # the recipe's clicks/image
+    cuts = {"--finetune_itrs": CLI_ITRS, "--val_period": CLI_VAL_PERIOD,
+            "--max_iterations": CLI_ROUNDS}
+    stage1 = recipe_cut(cmds[0], workdir, dl_dir,
+                        {**cuts, "--active_selection_size": budget})
+    init = stage1[stage1.index("--init_checkpoint") + 1]
+    check("imagenet_pretrained" in init, f"init {init}")
+    model = get_model("deeplabv3pluswn_resnet50deepstem", NUM_CLASSES, 16,
+                      separable_conv=True, device="cpu")
+    convert.load_variables(model, variables)
+    save_checkpoint(init, model)  # the seeded stand-in of the ImageNet init
+    del model
+    run = stage1[stage1.index("-p") + 1]
+
+    trains, real_train = [], rounds.ALTrainer.train
+    real_validate = rounds.ALTrainer.validate
+    plbl_s, real_generate = [], generator.PseudoLabelGenerator.generate
+
+    def train(self, active_set, *a, **k):
+        rec = {"stamps": [time.perf_counter()], "validations": [],
+               "losses": [], "images": len(active_set.get_trainset())}
+        trains.append(rec)
+        step = self.train_step
+        self.train_step = _Stamped(step, dev, rec["stamps"], rec["losses"])
+        try:
+            rec["img_per_s"] = real_train(self, active_set, *a, **k)
+        finally:
+            self.train_step = step
+        return rec["img_per_s"]
+
+    def validate(self, trainiter):
+        t1 = time.perf_counter()
+        out = real_validate(self, trainiter)
+        _sync(dev)
+        trains[-1]["validations"].append((t1, time.perf_counter()))
+        return out
+
+    def generate(self, *a, **k):
+        t1 = time.perf_counter()
+        out = real_generate(self, *a, **k)
+        _sync(dev)
+        plbl_s.append(time.perf_counter() - t1)
+        return out
+
+    rounds.ALTrainer.train, rounds.ALTrainer.validate = train, validate
+    generator.PseudoLabelGenerator.generate = generate
+    wall, launches, results = {}, {}, {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        def command(name, fn, argv):
+            _sync(dev)
+            _build.reset_launches()
+            t1 = time.perf_counter()
+            results[name] = fn(argv, device=dev)
+            _sync(dev)
+            wall[name] = time.perf_counter() - t1
+            launches[name] = dict(_build.LAUNCHES)
+
+        command("train_al", train_al.main, stage1)
+        for r in range(1, CLI_ROUNDS + 1):
+            plbl_cmd, s2_cmd = cmds[2 * r - 1], cmds[2 * r]
+            command(f"eval_al_{r:02d}", eval_al.main,
+                    recipe_cut(plbl_cmd, workdir, dl_dir, cuts))
+            command(f"train_stage2_{r:02d}", train_stage2.main,
+                    recipe_cut(s2_cmd, workdir, dl_dir, cuts))
+    finally:
+        rounds.ALTrainer.train, rounds.ALTrainer.validate = (real_train,
+                                                             real_validate)
+        generator.PseudoLabelGenerator.generate = real_generate
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    steps = CLI_ROUNDS * CLI_ITRS
+    check(launches["train_al"] == {k: steps for k in STAGE1_KERNELS},
+          f"train_al launched {launches['train_al']}, want each of "
+          f"{STAGE1_KERNELS} once per stage-1 step ({steps}) and no other")
+    check(sorted(results["train_al"]) == list(range(1, CLI_ROUNDS + 1)) and
+          all(math.isfinite(m) for m in results["train_al"].values()),
+          f"bad train_al mIoU {results['train_al']}")
+    check(len(trains) == 2 * CLI_ROUNDS and all(
+        len(t["losses"]) == CLI_ITRS and all(map(math.isfinite, t["losses"]))
+        and len(t["validations"]) == CLI_ITRS // CLI_VAL_PERIOD
+        for t in trains), "a training ran other steps or validations, or a "
+          "loss is not finite: " + str([(t["losses"], len(t["validations"]))
+                                        for t in trains]))
+    line_rounds = {}
+    for r in range(1, CLI_ROUNDS + 1):
+        with open(os.path.join(run, f"datalist_{r:02d}.json")) as f:
+            labelled = json.load(f)["trg_label_im_idx"]
+        plbl_dir = generator.plbl_save_dir(
+            os.path.join(run, f"checkpoint{r:02d}"), "cosprop_includeonehot",
+            f"{r:02d}")
+        pngs = sorted(os.listdir(plbl_dir))
+        check(len(pngs) == len(labelled) and pngs == sorted(
+            os.path.basename(l).split(".")[0] + ".png" for _, l, _ in
+            labelled), f"round {r}: {len(pngs)} pseudo-label PNGs for "
+              f"{len(labelled)} labelled images")
+        for p in pngs:  # every PNG decodes to a map of the image's size
+            check(read_gray8(os.path.join(plbl_dir, p)).shape == (PH, PW),
+                  f"{p}: bad pseudo-label map")
+        check(launches[f"eval_al_{r:02d}"] == {"seg_max_fwd": len(labelled)},
+              f"eval_al round {r} launched {launches[f'eval_al_{r:02d}']}, "
+              f"want seg_max_fwd once per labelled image ({len(labelled)})")
+        check(launches[f"train_stage2_{r:02d}"] == {},
+              f"stage 2 launched {launches[f'train_stage2_{r:02d}']}")
+        s2_miou = results[f"train_stage2_{r:02d}"]
+        check(math.isfinite(results[f"eval_al_{r:02d}"]) and
+              math.isfinite(s2_miou) and os.path.exists(os.path.join(
+                  run, f"stage2_checkpoint{r:02d}")),
+              f"round {r}: bad plbl or stage-2 result")
+        s1, s2 = trains[r - 1], trains[CLI_ROUNDS + r - 1]
+        cold, warm = _epoch_rates(s1, B)
+        s2_cold, s2_warm = _epoch_rates(s2, B)
+        line_rounds[r] = {
+            "labelled_images": len(labelled), "plbl_pngs": len(pngs),
+            "train_img_per_s": s1["img_per_s"], "train_cold_img_per_s": cold,
+            "train_warm_img_per_s": warm, "eval_miou": results["train_al"][r],
+            "plbl_img_per_s": len(labelled) / plbl_s[r - 1],
+            "plbl_miou": results[f"eval_al_{r:02d}"],
+            "stage2_img_per_s": s2["img_per_s"],
+            "stage2_cold_img_per_s": s2_cold,
+            "stage2_warm_img_per_s": s2_warm, "stage2_miou": s2_miou}
+
+    # the loader alone: one pass over fresh copies of the training files
+    # (cold caches) on worker processes and on threads, as many as cores
+    cfg = parse_config(stage1)
+    label = datasets.RegionDatasetOr(
+        cfg, cfg.trg_datalist, cfg.region_dict, "active-label",
+        transform=get_train_transform(cfg.train_transform, cfg,
+                                      seed=cfg.seed))
+    workers = min(8, os.cpu_count() or 1)
+    rates = {}
+    for mode in ("processes", "threads"):
+        ds = _fresh_copy(label, root, os.path.join(workdir, mode))
+        rates[mode] = _loader_rate(ds, mode == "processes", workers)
+    # a file-backed item by part, in this process: decoding (the image PNG,
+    # the superpixel pickle), the rest of the item (crop, resample,
+    # normalise, bits) over decoded files, the batch's copy to the card
+    img_p, _, spx_p = label.im_idx[0]
+    t1 = time.perf_counter()
+    read_rgb8(img_p)
+    t2 = time.perf_counter()
+    datasets._open_spx_impl(spx_p)
+    t3 = time.perf_counter()
+    for i in range(B):  # fills this process's decode cache
+        label[i]
+    t4 = time.perf_counter()
+    batch = collate([label[i] for i in range(B)])
+    t5 = time.perf_counter()
+    _sync(dev)
+    t6 = time.perf_counter()
+    for k in ("images", "target_bits", "target", "spx"):
+        torch.as_tensor(batch[k]).to(dev)
+    _sync(dev)
+    t7 = time.perf_counter()
+    datasets._decode_cache.clear()
+
+    line = {"cli_recipe": {
+        "card": smi, "config": f"{cfg.model} separable, {NUM_CLASSES} "
+        f"outputs, {cfg.dtype}, batch {cfg.train_batch_size}, crop "
+        f"{cfg.crop_size[0]}x{cfg.crop_size[1]}, nseg {cfg.nseg}, the "
+        f"recipe's flags; tree: {CLI_TRAIN} train and {CLI_VAL} val images "
+        f"at {PH}x{PW}, adaptive-filtered RGB PNGs, .pkl superpixels",
+        "cuts": {"finetune_itrs": CLI_ITRS, "val_period": CLI_VAL_PERIOD,
+                 "max_iterations": CLI_ROUNDS,
+                 "active_selection_size": budget,
+                 "init": "seeded stand-in of the ImageNet init",
+                 "stage-2 rounds": CLI_ROUNDS},
+        "tree_s": tree_s, "command_s": wall, "rounds": line_rounds,
+        "loader_files_per_s": {**rates, "workers": workers},
+        "item_ms": {"decode_image_png": (t2 - t1) * 1e3,
+                    "decode_superpixel_pkl": (t3 - t2) * 1e3,
+                    "transform_and_bits": (t5 - t4) / B * 1e3,
+                    "batch_to_card": (t7 - t6) * 1e3},
+        "launches": {k: v for k, v in launches.items() if v},
+        "peak_mem_gib": peak_gib}}
+    total = Counter()
+    for v in launches.values():
+        total.update(v)
+    return line, dict(total)
+
+
 def small_selector_check(dev, variables):
     """The paper's selector on the card against the CPU: the full-width
     model with the seeded weights in float32 (TF32 off) on two 96x80
@@ -1636,6 +1978,7 @@ def main():
     check(Path(mulactseg_tpu_torch.__file__).resolve().parents[1] == HERE,
           "mulactseg_tpu_torch must come from this checkout")
     from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.data.loader import shutdown_workers
     from mulactseg_tpu_torch.engine.train import make_train_step
     from mulactseg_tpu_torch.models import convert
     from mulactseg_tpu_torch.models.factory import get_model
@@ -1773,6 +2116,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         al_line, al_launches = al_rounds_slice(variables, dev, smi, tmp)
     small_selector_check(dev, variables)
+    # the recipe's three commands over files on disk, after the rounds
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_line, cli_launches = cli_recipe_slice(variables, dev, smi, tmp)
+    shutdown_workers()  # the loader's worker processes
+    print(json.dumps(cli_line), flush=True)
 
     # evaluation and pseudo-labelling at 1024x2048, from the seeded weights
     # again (BN in eval mode reads the running statistics)
@@ -1796,7 +2145,7 @@ def main():
     by_path = {f"stage1_nseg{NSEG}": stage1_launches,
                f"stage1_nseg{NSEG_LARGE}": large_launches,
                "plbl": plbl_launches, "row_ops": row_launches,
-               "al_rounds": al_launches}
+               "al_rounds": al_launches, "cli_recipe": cli_launches}
     launches = sum((Counter(n) for n in by_path.values()), Counter())
     check(all(launches[name] > 0 for name in KERNELS),
           f"a kernel was never launched on a main path: {dict(launches)}")

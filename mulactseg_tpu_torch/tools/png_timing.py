@@ -16,8 +16,7 @@ image), and "sub", "up", "average", "paeth" with that one filter on
 every row. For each kind it prints the filters used, the decode checked
 against the image, the median of --repeats single-threaded reads (ms),
 and the files per second of --threads threads reading 2 x --threads
-files at once (the loader's thread pool; the GIL is held between numpy
-calls), and of as many spawned processes (started and warmed before
+files at once (a loader's thread pool), and of as many spawned processes (started and warmed before
 the clock). Beside them, the median time of zlib's inflate of the file's
 IDAT alone, which any decoder pays. --root times the readers of another checkout
 (its mulactseg_tpu_torch/), so two versions compare on one host. Prints

@@ -742,3 +742,69 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path):
     for i in a:
         for k, t in a[i].items():
             assert torch.equal(b[i][k].to(t.device), t), (i, k)
+
+
+def test_resampler_built_on_the_card_host(dev):
+    """csrc/resample.cpp built by g++ on the card's host (-march=native
+    there) gives the numpy statement of Pillow's filter, on random boxes
+    and on a recipe-size window (1024x2048 source, 768x768 crop)."""
+    import importlib.util
+    from pathlib import Path
+
+    from mulactseg_tpu_torch import native
+
+    # by path: another installed package may own the name `tests`
+    spec = importlib.util.spec_from_file_location(
+        "resample_reference",
+        Path(__file__).with_name("test_torch_port_resample.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    _random_case, numpy_resize_bilinear = (ref._random_case,
+                                           ref.numpy_resize_bilinear)
+    assert native.build().exists()
+    rng = np.random.RandomState(0)
+    cases = [_random_case(rng) for _ in range(20)]
+    src = rng.randint(0, 256, (1024, 2048, 3)).astype(np.uint8)
+    cases.append((src[100:700, 300:1000], (768, 768),
+                  (1.3, 2.7, 690.1, 590.4)))
+    for img, size, box in cases:
+        np.testing.assert_array_equal(
+            native.resize_bilinear_u8(img, size, box=box),
+            numpy_resize_bilinear(img, size, box),
+            err_msg=str((img.shape, size, box)))
+
+
+def test_process_loader_at_recipe_size(dev, tmp_path):
+    """The recipe's training items (1024x2048 adaptive-filtered PNGs,
+    nseg 2048 superpixels, rescale_769_multi_notrg, batch 4) built in 4
+    worker processes equal the items of one process drawing in item
+    order, and reach the card unchanged."""
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.data.datasets import RegionDatasetOr
+    from mulactseg_tpu_torch.data.loader import DataProvider, collate
+    from mulactseg_tpu_torch.data.transforms import get_train_transform
+    from mulactseg_tpu_torch.tools.cityscapes_tree import write_tree
+
+    root = str(tmp_path / "data")
+    dl = write_tree(root, 4, 0, 1024, 2048, 2048, seed=0, processes=4)
+    cfg = Config(data_root=root, datalist_dir=dl).derive_paths()
+
+    def dataset():
+        return RegionDatasetOr(
+            cfg, cfg.trg_datalist, cfg.region_dict, "active-label",
+            transform=get_train_transform(cfg.train_transform, cfg, seed=0))
+
+    loader = DataProvider(dataset(), 4, infinite=False, num_workers=4,
+                          seed=0)
+    (got,) = list(loader)
+    loader.close()
+    order = np.arange(4)
+    np.random.RandomState(0).shuffle(order)
+    ref = dataset()
+    want = collate([ref[int(i)] for i in order])
+    assert got["images"].shape == (4, 3, 768, 768)
+    assert got["fnames"] == want["fnames"]
+    for k in ("images", "target", "spx", "spmask", "target_bits"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        on_card = torch.as_tensor(got[k]).to(dev)
+        assert torch.equal(on_card.cpu(), torch.as_tensor(want[k])), k
