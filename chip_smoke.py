@@ -113,6 +113,29 @@
    train img/s (whole, first epoch with cold decode caches, the rest
    warm, validations taken out), plbl img/s, stage-2 img/s and mIoU,
    loader files/s, item ms by part, launches, peak GiB.
+8c. The VOC recipe's commands over files (voc_recipe): a VOC-format tree
+   written by tools/voc_tree.py (VOC_TRAIN training and VOC_VAL validation
+   images at VOC's sizes, 375x500 to 500x500: baseline 4:2:0 JPEGs,
+   palette label PNGs, .pkl superpixels at nseg 150, the 5x5-trimmed
+   multi-hot tensors), a seeded 21-class model saved as the recipe's
+   ImageNet init file, and the command lines of
+   mulactseg_tpu_torch/scripts/train_voc_mul_res50.sh. First K1-K4 at the
+   VOC stage-1 instance, held and timed as in item 3: logits (12, 21,
+   513 * 513) of the seeded model on a stage-1 batch of the tree's files
+   (C = 21 takes the kernels' run-time-C instance, the odd HW their 4-byte
+   path), nseg 150 (S = 1,812: K3). Then the commands, cut to
+   --finetune_itrs VOC_ITRS, --val_period VOC_VAL_PERIOD, --max_iterations
+   VOC_ROUNDS and --active_selection_size at the recipe's 10,000 clicks
+   for 1,464 images in stage 1 and VOC_S2_ITRS steps in stage 2, run as in
+   item 8b: train_al launches K1-K4 once per stage-1 step, each eval_al
+   (10-view TTA pseudo-labels) K5 once per labelled image, stage 2
+   nothing; one pseudo-label PNG per labelled image, each the size of its
+   JPEG. Then K5 held bitwise and timed on one pseudo-labelling image's
+   TTA softmax planes (last round's checkpoint, its selected
+   superpixels), and JPEG decoding timed a file at a time. Its line:
+   per-command seconds, per round train img/s (whole, first epoch, the
+   rest), plbl img/s and mIoU, stage-2 img/s and mIoU, JPEG decode ms per
+   file, launches, peak GiB.
 9. Reloads the seeded weights and, at full resolution (1x3x1024x2048,
    nseg 2048), holds K5 against its plain version, bitwise, on the
    softmax planes of an eval forward with ~30% of superpixels selected,
@@ -139,11 +162,12 @@
 Prints, before the last line, the slices' numbers (the al_rounds line:
 per round the selection seconds, train img/s, validations, eval mIoU,
 checkpoint save and load seconds; then plbl img/s, stage-2 img/s and mIoU,
-peak memory and the card; the cli_recipe line, item 8b) and one JSON line
-with
-each kernel's check and times (K5 twice: at plbl's shapes and on K6's
-planes), its launches on each main path (launches_by_path) and their sum
-(launches); the last line is
+peak memory and the card; the cli_recipe line, item 8b; the voc_recipe
+line, item 8c) and one JSON line with
+each kernel's check and times (K5 three times: at plbl's shapes, on K6's
+planes and on a VOC plbl image; K1-K4 twice: at Cityscapes' and VOC's
+stage-1 shapes), its launches on each main path (launches_by_path) and
+their sum (launches); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero; there is no CPU fallback.
 """
@@ -181,6 +205,15 @@ AL_POOL, AL_VAL, AL_ITRS, AL_VAL_PERIOD, AL_BUDGET = 8, 4, 12, 6, 3000
 # flags cut to CLI_ROUNDS rounds of CLI_ITRS steps, validating every
 # CLI_VAL_PERIOD steps
 CLI_TRAIN, CLI_VAL, CLI_ITRS, CLI_VAL_PERIOD, CLI_ROUNDS = 16, 4, 12, 6, 2
+# the VOC recipe's commands over files: a generated VOC-format tree of
+# VOC_TRAIN training and VOC_VAL validation images at VOC's sizes, the
+# recipe's flags (batch VOC_B, VOC_CROP crops, nseg VOC_NSEG, VOC_CLASSES
+# classes) cut to VOC_ROUNDS rounds of VOC_ITRS stage-1 steps validating
+# every VOC_VAL_PERIOD, and VOC_S2_ITRS stage-2 steps a round validating
+# every VOC_S2_VAL_PERIOD
+VOC_TRAIN, VOC_VAL, VOC_ITRS, VOC_VAL_PERIOD, VOC_ROUNDS = 16, 4, 12, 6, 2
+VOC_S2_ITRS, VOC_S2_VAL_PERIOD = 10, 5
+VOC_B, VOC_CROP, VOC_NSEG, VOC_CLASSES = 12, 513, 150, 21
 TIMING_RUNS, REPEATS = 20, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -325,14 +358,17 @@ def make_batches(n, seed, nseg=None):
 
 
 def stage1_ids(batch, dev, nseg):
-    """(bits3, candidate counts, sid3) of lossdecomp_fused's group term."""
+    """(bits3, candidate counts, sid3) of lossdecomp_fused's group term,
+    for a batch of any (B, H, W) and class count."""
     from mulactseg_tpu_torch.losses.fused import _popcount
 
+    B, H, W = batch["spx"].shape
+    C = batch["target"].shape[-1]
     HW, P = H * W, B * H * W
     bits3 = torch.as_tensor(batch["target_bits"]).to(dev).reshape(
         B, 1, HW).contiguous()
     spx = torch.as_tensor(batch["spx"]).to(dev).reshape(P).long()
-    n_cand = _popcount(bits3.reshape(P).long() & ((1 << NUM_CLASSES) - 1))
+    n_cand = _popcount(bits3.reshape(P).long() & ((1 << C) - 1))
     off = torch.arange(B, device=dev).repeat_interleave(HW) * nseg
     sid3 = torch.where(n_cand > 1, spx + off, B * nseg).int().reshape(
         B, 1, HW)
@@ -377,26 +413,25 @@ def check_k3(xc, sid3, S, temp, vals, pix, what):
     return err
 
 
-def colliding_ids(dev, S):
-    """Adversarial ids for K3 at the stage-1 size: one id per run of 4
-    pixels, ids equal modulo K3's shared slot count in groups of 32 runs
-    (so most runs of a span find their slot held), a quarter of the runs
-    invalid."""
+def colliding_ids(dev, S, B, HW):
+    """Adversarial ids for K3 on (B, 1, HW) logits: one id per run of 4
+    pixels (the last run cut short), ids equal modulo K3's shared slot
+    count in groups of 32 runs (so most runs of a span find their slot
+    held), a quarter of the runs invalid."""
     from mulactseg_tpu_torch.ops import segment
 
     gen = torch.Generator(device="cpu").manual_seed(1)
-    runs = B * H * W // 4
+    runs = -(-B * HW // 4)
     r = torch.arange(runs)
     ids = (r * segment.K3_SLOTS + r // 32) % S
     ids = torch.where(torch.rand(runs, generator=gen) < 0.25, S, ids)
-    return ids.repeat_interleave(4).int().reshape(B, 1, H * W).to(dev)
+    return ids.repeat_interleave(4)[:B * HW].int().reshape(B, 1, HW).to(dev)
 
 
-def group_cotangent(vals, pix, target):
+def group_cotangent(vals, pix, target, P):
     """The group term's cotangent of the max values, as lossdecomp_fused
     makes it: -log(max + 1e-8) over the present target entries, over one
-    plus their count."""
-    P = B * H * W
+    plus their count; P pixels in all."""
     mx = vals.clone().requires_grad_(True)
     present = (pix[:, 0] < P).reshape(target.shape[:2])
     entry = (target > 0.5) & present[:, :, None]
@@ -422,19 +457,20 @@ def check_k4(xc, sid3, vals, pix, gv, temp, what):
     return got, err
 
 
-def kernel_checks(logits, batch, dev):
-    """K1-K4 against their plain versions at the main path's shapes.
-    Returns one row per kernel: (name, max abs err, ms, plain ms,
-    (bound ms, bound by), library ms or None)."""
+def kernel_checks(logits, batch, dev, nseg=NSEG, label=""):
+    """K1-K4 against their plain versions at a main path's shapes: the
+    (B, C, H, W) logits and the batch's ids at nseg. Returns one row per
+    kernel: (name + label, max abs err, ms, plain ms, (bound ms, bound
+    by), library ms or None)."""
     from mulactseg_tpu_torch.ops import pixel_loss, segment
 
+    B, C, H, W = logits.shape
     HW = H * W
     P = B * HW
-    S = B * NSEG
-    C = NUM_CLASSES
+    S = B * nseg
     temp = 0.1
     xc = logits.reshape(B, C, HW).contiguous()
-    bits3, n_cand, sid3 = stage1_ids(batch, dev, NSEG)
+    bits3, n_cand, sid3 = stage1_ids(batch, dev, nseg)
     target = torch.as_tensor(batch["target"]).to(dev)
     # bytes each kernel must move: its inputs once, its outputs once, and
     # the logits only of the pixels this data needs (a pixel without
@@ -445,15 +481,18 @@ def kernel_checks(logits, batch, dev):
     rows = []
 
     # K1, bitwise the same on a second call, and K1 and K2 on the 4-byte
-    # path too: the logits one float into a larger storage (HW % 4 == 0,
-    # but not 16-byte aligned)
+    # path too: the logits one float into a larger storage (not 16-byte
+    # aligned). The instance: C compiled where it is 20, else C at run
+    # time; 16-byte loads where HW % 4 == 0 and the logits are aligned.
     store = torch.empty(xc.numel() + 1, device=dev)
     store[1:] = xc.reshape(-1)
     xu = store[1:].view(B, C, HW)
-    check(pixel_loss.instance(xc, bits3) == (C, True)
-          and pixel_loss.instance(xu, bits3) == (C, False),
-          "K1/K2 instances: want the C = 20 one, 16-byte path on the "
-          "model's logits, 4-byte path on the shifted copy")
+    nc = pixel_loss.compiled_classes(C)
+    check(pixel_loss.instance(xc, bits3) == (nc, HW % 4 == 0)
+          and pixel_loss.instance(xu, bits3) == (nc, False),
+          f"K1/K2 instances: want C {nc or 'at run time'}, 16-byte path "
+          f"{HW % 4 == 0} on the model's logits, 4-byte path on the "
+          "shifted copy")
     got = pixel_loss.pixel_ce_fwd(xc, bits3, temp)
     want = pixel_loss.pixel_ce_fwd_plain(xc, bits3, temp)
     got_u = pixel_loss.pixel_ce_fwd(xu, bits3, temp)
@@ -465,7 +504,7 @@ def kernel_checks(logits, batch, dev):
               f"{what} sums differ: {k1.tolist()} vs {want.tolist()}")
     check(torch.equal(pixel_loss.pixel_ce_fwd(xc, bits3, temp), got),
           "K1 is not bitwise reproducible")
-    rows.append(("pixel_ce_fwd", (got - want).abs().max().item(),
+    rows.append(("pixel_ce_fwd" + label, (got - want).abs().max().item(),
                  time_ms(lambda: pixel_loss.pixel_ce_fwd(xc, bits3, temp),
                          graph=True),
                  time_ms(lambda: pixel_loss.pixel_ce_fwd_plain(xc, bits3,
@@ -488,7 +527,7 @@ def kernel_checks(logits, batch, dev):
               f"{scale}")
         del got
     err = errs[0]
-    print(json.dumps({"pixel_loss_4byte_path": {
+    print(json.dumps({"pixel_loss_4byte_path" + label: {
         "K1_ms": time_ms(lambda: pixel_loss.pixel_ce_fwd(xu, bits3, temp),
                          graph=True),
         "K2_ms": time_ms(lambda: pixel_loss.pixel_ce_bwd(xu, bits3, g,
@@ -496,7 +535,7 @@ def kernel_checks(logits, batch, dev):
         "K1_max_abs_err": (got_u - want).abs().max().item(),
         "K2_max_abs_err": errs[1]}}), flush=True)
     del store, xu
-    rows.append(("pixel_ce_bwd", err,
+    rows.append(("pixel_ce_bwd" + label, err,
                  time_ms(lambda: pixel_loss.pixel_ce_bwd(xc, bits3, g, temp),
                          graph=True),
                  time_ms(lambda: pixel_loss.pixel_ce_bwd_plain(xc, bits3, g,
@@ -509,13 +548,13 @@ def kernel_checks(logits, batch, dev):
     # K3, on the recipe's ids and on adversarial ones
     vals, pix = segment.ssm_fwd(xc, sid3, S, temp)
     err = check_k3(xc, sid3, S, temp, vals, pix, "K3")
-    adv = colliding_ids(dev, S)
+    adv = colliding_ids(dev, S, B, HW)
     adv_err = check_k3(xc, adv, S, temp, *segment.ssm_fwd(xc, adv, S, temp),
                        "K3 on colliding ids")
     print(f"K3 on colliding ids (one id per run of 4, slots held by other "
           f"ids): max abs err {adv_err}", flush=True)
     del adv
-    rows.append(("ssm_fwd", max(err, adv_err),
+    rows.append(("ssm_fwd" + label, max(err, adv_err),
                  time_ms(lambda: segment.ssm_fwd(xc, sid3, S, temp),
                          graph=True),
                  time_ms(lambda: segment.ssm_fwd_plain(xc, sid3, S, temp)),
@@ -524,7 +563,7 @@ def kernel_checks(logits, batch, dev):
                  None))
 
     # K4, with the group term's cotangent of the max values
-    gv = group_cotangent(vals, pix, target)
+    gv = group_cotangent(vals, pix, target, P)
     got, err = check_k4(xc, sid3, vals, pix, gv, temp, "K4")
     scale = got.abs().max().item()
     # the library's softmax backward computes the same dl from the softmax
@@ -542,7 +581,7 @@ def kernel_checks(logits, batch, dev):
           f"K4 dl differs from the softmax backward by {lib_err}")
     del got, lib
     n_live_pix = int(torch.unique(qa).numel())
-    rows.append(("ssm_bwd", err,
+    rows.append(("ssm_bwd" + label, err,
                  time_ms(lambda: segment.ssm_bwd(xc, sid3, vals, pix, gv,
                                                  temp), graph=True),
                  time_ms(lambda: segment.ssm_bwd_plain(xc, vals, pix, gv,
@@ -739,7 +778,7 @@ def large_kernel_checks(logits, batch, dev):
     # K4 on the pre-reduced term's outputs, the backward of this path
     target = torch.as_tensor(batch["target"]).to(dev)
     _, k4_err = check_k4(xc, sid3, pre_vals, pre_pix,
-                         group_cotangent(pre_vals, pre_pix, target), temp,
+                         group_cotangent(pre_vals, pre_pix, target, P), temp,
                          "K4 on the pre-reduced term")
     print(f"K4 on the pre-reduced term (nseg {NSEG_LARGE}): max abs err "
           f"{k4_err}", flush=True)
@@ -1118,14 +1157,14 @@ def plbl_fixture(n, seed):
     return batches, suppix
 
 
-def check_k5(values, sid, name):
+def check_k5(values, sid, name, nseg=NSEG):
     """K5 on (P, C) values under (P,) ids against its plain version: the
     argmax pixels and the max values bitwise, with present and absent
-    segments among the NSEG. Returns the max abs error."""
+    segments among the nseg. Returns the max abs error."""
     from mulactseg_tpu_torch.ops import segment_max
 
-    vals, pix = segment_max.seg_max_fwd(values, sid, NSEG)
-    pvals, ppix = segment_max.segment_max_plain(values, sid, NSEG)
+    vals, pix = segment_max.seg_max_fwd(values, sid, nseg)
+    pvals, ppix = segment_max.segment_max_plain(values, sid, nseg)
     torch.cuda.synchronize()
     P = values.shape[0]
     check(torch.equal(pix, ppix), f"K5 argmax pixels differ ({name})")
@@ -1716,48 +1755,17 @@ def _fresh_copy(ds, root, dst):
     return out
 
 
-def cli_recipe_slice(variables, dev, smi, workdir):
-    """The recipe's three commands over files (docstring, item 8b): a
-    generated Cityscapes-format tree, the port recipe's command lines cut
-    to CLI_ROUNDS rounds, each run through its CLI's main(argv). Returns
-    (the cli_recipe line, the path's launches)."""
-    from mulactseg_tpu_torch.cli import eval_al, train_al, train_stage2
-    from mulactseg_tpu_torch.config import parse_config
-    from mulactseg_tpu_torch.data import datasets
-    from mulactseg_tpu_torch.data.loader import collate
-    from mulactseg_tpu_torch.data.transforms import get_train_transform
+def run_commands(dev, commands):
+    """Runs the (name, main, argv) commands in order on dev, each through
+    its CLI's main(argv, device=dev), with every launch counter set to 0
+    just before it and read just after; each training's steps are
+    stamped (a synchronise after each) with its validations, and each
+    pseudo-labelling is timed. Returns (wall s, launches, results by
+    command; the trainings' records and the pseudo-labellings' seconds in
+    order; peak GiB)."""
     from mulactseg_tpu_torch.engine import rounds
-    from mulactseg_tpu_torch.engine.checkpoint import save_checkpoint
-    from mulactseg_tpu_torch.models import convert
-    from mulactseg_tpu_torch.models.factory import get_model
     from mulactseg_tpu_torch.ops import _build
     from mulactseg_tpu_torch.plbl import generator
-    from mulactseg_tpu_torch.tools.cityscapes_tree import write_tree
-    from mulactseg_tpu_torch.utils.png import read_gray8, read_rgb8
-
-    t0 = time.perf_counter()
-    root = os.path.join(workdir, "data")
-    dl_dir = write_tree(root, CLI_TRAIN, CLI_VAL, PH, PW, NSEG, seed=0,
-                        encoding="adaptive", processes=os.cpu_count() or 1)
-    tree_s = time.perf_counter() - t0
-    cmds = recipe_commands("train_city_mul_res50.sh", workdir, root)
-    modules = ["train_al"] + ["eval_al", "train_stage2"] * 5
-    check([c[:2] for c in cmds] == [["-m", f"mulactseg_tpu_torch.cli.{m}"]
-                                    for m in modules],
-          f"the recipe issued {[c[:2] for c in cmds]}")
-    budget = round(CLI_TRAIN * 100_000 / 2_975)  # the recipe's clicks/image
-    cuts = {"--finetune_itrs": CLI_ITRS, "--val_period": CLI_VAL_PERIOD,
-            "--max_iterations": CLI_ROUNDS}
-    stage1 = recipe_cut(cmds[0], workdir, dl_dir,
-                        {**cuts, "--active_selection_size": budget})
-    init = stage1[stage1.index("--init_checkpoint") + 1]
-    check("imagenet_pretrained" in init, f"init {init}")
-    model = get_model("deeplabv3pluswn_resnet50deepstem", NUM_CLASSES, 16,
-                      separable_conv=True, device="cpu")
-    convert.load_variables(model, variables)
-    save_checkpoint(init, model)  # the seeded stand-in of the ImageNet init
-    del model
-    run = stage1[stage1.index("-p") + 1]
 
     trains, real_train = [], rounds.ALTrainer.train
     real_validate = rounds.ALTrainer.validate
@@ -1795,7 +1803,7 @@ def cli_recipe_slice(variables, dev, smi, workdir):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     try:
-        def command(name, fn, argv):
+        for name, fn, argv in commands:
             _sync(dev)
             _build.reset_launches()
             t1 = time.perf_counter()
@@ -1803,19 +1811,63 @@ def cli_recipe_slice(variables, dev, smi, workdir):
             _sync(dev)
             wall[name] = time.perf_counter() - t1
             launches[name] = dict(_build.LAUNCHES)
-
-        command("train_al", train_al.main, stage1)
-        for r in range(1, CLI_ROUNDS + 1):
-            plbl_cmd, s2_cmd = cmds[2 * r - 1], cmds[2 * r]
-            command(f"eval_al_{r:02d}", eval_al.main,
-                    recipe_cut(plbl_cmd, workdir, dl_dir, cuts))
-            command(f"train_stage2_{r:02d}", train_stage2.main,
-                    recipe_cut(s2_cmd, workdir, dl_dir, cuts))
     finally:
         rounds.ALTrainer.train, rounds.ALTrainer.validate = (real_train,
                                                              real_validate)
         generator.PseudoLabelGenerator.generate = real_generate
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    return wall, launches, results, trains, plbl_s, peak_gib
+
+
+def cli_recipe_slice(variables, dev, smi, workdir):
+    """The recipe's three commands over files (docstring, item 8b): a
+    generated Cityscapes-format tree, the port recipe's command lines cut
+    to CLI_ROUNDS rounds, each run through its CLI's main(argv). Returns
+    (the cli_recipe line, the path's launches)."""
+    from mulactseg_tpu_torch.cli import eval_al, train_al, train_stage2
+    from mulactseg_tpu_torch.config import parse_config
+    from mulactseg_tpu_torch.data import datasets
+    from mulactseg_tpu_torch.data.loader import collate
+    from mulactseg_tpu_torch.data.transforms import get_train_transform
+    from mulactseg_tpu_torch.engine.checkpoint import save_checkpoint
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.models.factory import get_model
+    from mulactseg_tpu_torch.plbl import generator
+    from mulactseg_tpu_torch.tools.cityscapes_tree import write_tree
+    from mulactseg_tpu_torch.utils.png import read_gray8, read_rgb8
+
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "data")
+    dl_dir = write_tree(root, CLI_TRAIN, CLI_VAL, PH, PW, NSEG, seed=0,
+                        encoding="adaptive", processes=os.cpu_count() or 1)
+    tree_s = time.perf_counter() - t0
+    cmds = recipe_commands("train_city_mul_res50.sh", workdir, root)
+    modules = ["train_al"] + ["eval_al", "train_stage2"] * 5
+    check([c[:2] for c in cmds] == [["-m", f"mulactseg_tpu_torch.cli.{m}"]
+                                    for m in modules],
+          f"the recipe issued {[c[:2] for c in cmds]}")
+    budget = round(CLI_TRAIN * 100_000 / 2_975)  # the recipe's clicks/image
+    cuts = {"--finetune_itrs": CLI_ITRS, "--val_period": CLI_VAL_PERIOD,
+            "--max_iterations": CLI_ROUNDS}
+    stage1 = recipe_cut(cmds[0], workdir, dl_dir,
+                        {**cuts, "--active_selection_size": budget})
+    init = stage1[stage1.index("--init_checkpoint") + 1]
+    check("imagenet_pretrained" in init, f"init {init}")
+    model = get_model("deeplabv3pluswn_resnet50deepstem", NUM_CLASSES, 16,
+                      separable_conv=True, device="cpu")
+    convert.load_variables(model, variables)
+    save_checkpoint(init, model)  # the seeded stand-in of the ImageNet init
+    del model
+    run = stage1[stage1.index("-p") + 1]
+    commands = [("train_al", train_al.main, stage1)]
+    for r in range(1, CLI_ROUNDS + 1):
+        commands += [
+            (f"eval_al_{r:02d}", eval_al.main,
+             recipe_cut(cmds[2 * r - 1], workdir, dl_dir, cuts)),
+            (f"train_stage2_{r:02d}", train_stage2.main,
+             recipe_cut(cmds[2 * r], workdir, dl_dir, cuts))]
+    wall, launches, results, trains, plbl_s, peak_gib = run_commands(
+        dev, commands)
 
     steps = CLI_ROUNDS * CLI_ITRS
     check(launches["train_al"] == {k: steps for k in STAGE1_KERNELS},
@@ -1925,6 +1977,224 @@ def cli_recipe_slice(variables, dev, smi, workdir):
     for v in launches.values():
         total.update(v)
     return line, dict(total)
+
+
+def voc_recipe_slice(dev, smi, workdir):
+    """The VOC recipe's commands over files (docstring, item 8c): a
+    generated VOC-format tree, the kernel instances of VOC stage 1 held
+    against their plain versions, the port's VOC script cut to VOC_ROUNDS
+    rounds and run through the CLIs' main(argv), and K5 held on a TTA
+    pseudo-labelling image. Returns (the voc_recipe line, the path's
+    launches, the kernels-line rows of the VOC instances)."""
+    from mulactseg_tpu_torch.cli import eval_al, train_al, train_stage2
+    from mulactseg_tpu_torch.cli.common import build_active_datasets
+    from mulactseg_tpu_torch.config import parse_config
+    from mulactseg_tpu_torch.data import datasets
+    from mulactseg_tpu_torch.data.loader import collate
+    from mulactseg_tpu_torch.data.transforms import get_train_transform
+    from mulactseg_tpu_torch.engine.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from mulactseg_tpu_torch.engine.tta import tta_feat_forward
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.models.factory import get_model
+    from mulactseg_tpu_torch.ops import segment_max
+    from mulactseg_tpu_torch.plbl import generator
+    from mulactseg_tpu_torch.tools.voc_tree import write_tree
+    from mulactseg_tpu_torch.utils import jpeg
+    from mulactseg_tpu_torch.utils.png import read_gray8
+
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "data")
+    dl_dir = write_tree(root, VOC_TRAIN, VOC_VAL, VOC_NSEG, seed=0)
+    tree_s = time.perf_counter() - t0
+    cmds = recipe_commands("train_voc_mul_res50.sh", workdir, root)
+    modules = ["train_al"] + ["eval_al", "train_stage2"] * 5
+    check([c[:2] for c in cmds] == [["-m", f"mulactseg_tpu_torch.cli.{m}"]
+                                    for m in modules],
+          f"the VOC recipe issued {[c[:2] for c in cmds]}")
+    budget = round(VOC_TRAIN * 10_000 / 1_464)  # the recipe's clicks/image
+    stage1 = recipe_cut(cmds[0], workdir, dl_dir, {
+        "--finetune_itrs": VOC_ITRS, "--val_period": VOC_VAL_PERIOD,
+        "--max_iterations": VOC_ROUNDS, "--active_selection_size": budget})
+    cfg = parse_config(stage1)
+    check((cfg.dataset, cfg.num_classes, cfg.train_batch_size,
+           cfg.crop_size, cfg.nseg, cfg.dtype) == (
+              "voc", VOC_CLASSES, VOC_B, (VOC_CROP, VOC_CROP), VOC_NSEG,
+              "bfloat16"), f"the VOC stage-1 command parsed to {cfg}")
+    init = stage1[stage1.index("--init_checkpoint") + 1]
+    check("imagenet_pretrained" in init, f"init {init}")
+    model = get_model(cfg.model, VOC_CLASSES, 16, separable_conv=True,
+                      device="cpu")
+    convert.load_variables(model, convert.random_variables(model, seed=0))
+    save_checkpoint(init, model)  # the seeded stand-in of the ImageNet init
+    model.to(dev).eval()
+
+    # the VOC instances of K1-K4 (C = 21 at run time; HW = 513 * 513 is
+    # odd, so the 4-byte path): a stage-1 batch of the tree's files, half
+    # of each image's superpixels selected, through the seeded model
+    label = datasets.RegionDatasetOr(
+        cfg, cfg.trg_datalist, cfg.region_dict, "active-label",
+        transform=get_train_transform(cfg.train_transform, cfg,
+                                      seed=cfg.seed),
+        encode_fn=datasets.encode_identity)
+    rng = np.random.RandomState(0)
+    for k, ids in label.suppix.items():
+        label.suppix[k] = sorted(rng.choice(ids, len(ids) // 2,
+                                            replace=False).tolist())
+    batch = collate([label[i % len(label)] for i in range(VOC_B)])
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        logits = model(torch.as_tensor(batch["images"]).to(dev))
+    check(logits.shape == (VOC_B, VOC_CLASSES, VOC_CROP, VOC_CROP)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), "bad VOC model logits")
+    shape = f"voc ({VOC_B}, {VOC_CLASSES}, {VOC_CROP * VOC_CROP})"
+    rows = kernel_checks(logits, batch, dev, nseg=VOC_NSEG,
+                         label=f"@{shape}")
+    del logits, batch, label
+    model.cpu()
+    torch.cuda.empty_cache()
+
+    run = stage1[stage1.index("-p") + 1]
+    s2_cuts = {"--finetune_itrs": VOC_S2_ITRS,
+               "--val_period": VOC_S2_VAL_PERIOD}
+    commands = [("train_al", train_al.main, stage1)]
+    for r in range(1, VOC_ROUNDS + 1):
+        commands += [
+            (f"eval_al_{r:02d}", eval_al.main,
+             recipe_cut(cmds[2 * r - 1], workdir, dl_dir, {})),
+            (f"train_stage2_{r:02d}", train_stage2.main,
+             recipe_cut(cmds[2 * r], workdir, dl_dir, s2_cuts))]
+    wall, launches, results, trains, plbl_s, peak_gib = run_commands(
+        dev, commands)
+
+    steps = VOC_ROUNDS * VOC_ITRS
+    check(launches["train_al"] == {k: steps for k in STAGE1_KERNELS},
+          f"VOC train_al launched {launches['train_al']}, want each of "
+          f"{STAGE1_KERNELS} once per stage-1 step ({steps}) and no other")
+    check(sorted(results["train_al"]) == list(range(1, VOC_ROUNDS + 1)) and
+          all(math.isfinite(m) for m in results["train_al"].values()),
+          f"bad VOC train_al mIoU {results['train_al']}")
+    want = ([(VOC_ITRS, VOC_ITRS // VOC_VAL_PERIOD)] * VOC_ROUNDS
+            + [(VOC_S2_ITRS, VOC_S2_ITRS // VOC_S2_VAL_PERIOD)] * VOC_ROUNDS)
+    check([(len(t["losses"]), len(t["validations"])) for t in trains] == want
+          and all(math.isfinite(x) for t in trains for x in t["losses"]),
+          "a VOC training ran other steps or validations, or a loss is not "
+          "finite: " + str([(t["losses"], len(t["validations"]))
+                            for t in trains]))
+    line_rounds, last = {}, None
+    for r in range(1, VOC_ROUNDS + 1):
+        with open(os.path.join(run, f"datalist_{r:02d}.json")) as f:
+            labelled = json.load(f)["trg_label_im_idx"]
+        plbl_dir = generator.plbl_save_dir(
+            os.path.join(run, f"checkpoint{r:02d}"), "cosprop_includeonehot",
+            f"{r:02d}")
+        pngs = sorted(os.listdir(plbl_dir))
+        check(len(pngs) == len(labelled) and pngs == sorted(
+            os.path.basename(l).split(".")[0] + ".png" for _, l, _ in
+            labelled), f"VOC round {r}: {len(pngs)} pseudo-label PNGs for "
+              f"{len(labelled)} labelled images")
+        for img, lbl, _ in labelled:  # each the size of its image
+            p = os.path.join(plbl_dir,
+                             os.path.basename(lbl).split(".")[0] + ".png")
+            check(read_gray8(p).shape == jpeg.jpeg_size(img),
+                  f"{p}: not a map of its image's size")
+        check(launches[f"eval_al_{r:02d}"] == {"seg_max_fwd": len(labelled)},
+              f"VOC eval_al round {r} launched "
+              f"{launches[f'eval_al_{r:02d}']}, want seg_max_fwd once per "
+              f"labelled image ({len(labelled)})")
+        check(launches[f"train_stage2_{r:02d}"] == {},
+              f"VOC stage 2 launched {launches[f'train_stage2_{r:02d}']}")
+        s2_miou = results[f"train_stage2_{r:02d}"]
+        check(math.isfinite(results[f"eval_al_{r:02d}"]) and
+              math.isfinite(s2_miou) and os.path.exists(os.path.join(
+                  run, f"stage2_checkpoint{r:02d}")),
+              f"VOC round {r}: bad plbl or stage-2 result")
+        s1, s2 = trains[r - 1], trains[VOC_ROUNDS + r - 1]
+        cold, warm = _epoch_rates(s1, VOC_B)
+        s2_batch = parse_config(commands[2 * r][2]).train_batch_size
+        s2_cold, s2_warm = _epoch_rates(s2, s2_batch)
+        line_rounds[r] = {
+            "labelled_images": len(labelled), "plbl_pngs": len(pngs),
+            "train_img_per_s": s1["img_per_s"], "train_cold_img_per_s": cold,
+            "train_warm_img_per_s": warm, "eval_miou": results["train_al"][r],
+            "plbl_img_per_s": len(labelled) / plbl_s[r - 1],
+            "plbl_miou": results[f"eval_al_{r:02d}"],
+            "stage2_batch": s2_batch, "stage2_img_per_s": s2["img_per_s"],
+            "stage2_cold_img_per_s": s2_cold,
+            "stage2_warm_img_per_s": s2_warm, "stage2_miou": s2_miou}
+        last = commands[2 * r - 1][2]
+
+    # K5 on one pseudo-labelling image of the last round, its planes as the
+    # generator builds them: the TTA softmax of the round's checkpoint
+    # under the image's selected superpixels
+    ecfg = parse_config(last)
+    active, _ = build_active_datasets(ecfg)
+    active.selection_iter = ecfg.init_iteration
+    active.load_datalist(ecfg.datalist_path)
+    lds = active.trg_label_dataset
+    item = datasets.EvalRegionDatasetAll(ecfg, lds, lds.suppix,
+                                         emit_u8=True)[0]
+    model.load_state_dict(load_checkpoint(ecfg.resume_checkpoint)[
+        "model_state_dict"])
+    model.to(dev)
+    _, logits = tta_feat_forward(model, item["images"][None], dev, True)
+    h, w = item["spx"].shape
+    P = h * w
+    planes = torch.softmax(logits[0].float(), dim=0).reshape(
+        VOC_CLASSES, P).t()
+    sid = torch.from_numpy(np.where(item["spmask"], item["spx"], VOC_NSEG)
+                           .reshape(-1).astype(np.int32)).to(dev)
+    k5_err = check_k5(planes, sid, f"VOC plbl image, {h}x{w}",
+                      nseg=VOC_NSEG)
+    n_valid = int((sid < VOC_NSEG).sum())
+    rows.append((
+        f"seg_max_fwd@voc plbl ({P}, {VOC_CLASSES}), {VOC_NSEG} segments",
+        k5_err,
+        time_ms(lambda: segment_max.seg_max_fwd(planes, sid, VOC_NSEG),
+                graph=True),
+        time_ms(lambda: segment_max.segment_max_plain(planes, sid,
+                                                      VOC_NSEG)),
+        bound(P * 4 + n_valid * VOC_CLASSES * 4 + VOC_NSEG * VOC_CLASSES * 8,
+              n_valid * VOC_CLASSES), None))
+    del model, logits, planes
+    torch.cuda.empty_cache()
+
+    # JPEG decoding, a file of the tree at a time, in this process
+    decode_ms = []
+    for img, _, _ in datasets.RegionDatasetOr(
+            cfg, cfg.trg_datalist, cfg.region_dict, "active-ulabel",
+            encode_fn=datasets.encode_identity).im_idx:
+        t1 = time.perf_counter()
+        jpeg.read_rgb8(img)
+        decode_ms.append((time.perf_counter() - t1) * 1e3)
+
+    line = {"voc_recipe": {
+        "card": smi, "config": f"{cfg.model} separable, {VOC_CLASSES} "
+        f"outputs, {cfg.dtype}, batch {VOC_B}, crop {VOC_CROP}x{VOC_CROP}, "
+        f"nseg {VOC_NSEG}, the VOC recipe's flags (10-view TTA plbl); tree: "
+        f"{VOC_TRAIN} train and {VOC_VAL} val images at VOC's sizes, "
+        "baseline 4:2:0 JPEGs (quality 75), palette label PNGs, .pkl "
+        "superpixels",
+        "cuts": {"finetune_itrs": VOC_ITRS, "val_period": VOC_VAL_PERIOD,
+                 "max_iterations": VOC_ROUNDS,
+                 "active_selection_size": budget,
+                 "stage-2 finetune_itrs": VOC_S2_ITRS,
+                 "stage-2 val_period": VOC_S2_VAL_PERIOD,
+                 "init": "seeded stand-in of the ImageNet init",
+                 "stage-2 rounds": VOC_ROUNDS},
+        "tree_s": tree_s, "command_s": wall, "rounds": line_rounds,
+        "jpeg_decode_ms_per_file": statistics.median(decode_ms),
+        "jpeg_decode_ms_range": [min(decode_ms), max(decode_ms)],
+        "k5_plbl_image": {"pixels": P, "valid": n_valid,
+                          "max_abs_err": k5_err},
+        "launches": {k: v for k, v in launches.items() if v},
+        "peak_mem_gib": peak_gib}}
+    total = Counter()
+    for v in launches.values():
+        total.update(v)
+    return line, dict(total), rows
 
 
 def small_selector_check(dev, variables):
@@ -2122,6 +2392,13 @@ def main():
         cli_line, cli_launches = cli_recipe_slice(variables, dev, smi, tmp)
     shutdown_workers()  # the loader's worker processes
     print(json.dumps(cli_line), flush=True)
+    # the VOC recipe's commands over a VOC-format tree, its kernel
+    # instances held first
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        voc_line, voc_launches, voc_rows = voc_recipe_slice(dev, smi, tmp)
+    shutdown_workers()
+    print(json.dumps(voc_line), flush=True)
 
     # evaluation and pseudo-labelling at 1024x2048, from the seeded weights
     # again (BN in eval mode reads the running statistics)
@@ -2140,12 +2417,13 @@ def main():
         gen = torch.Generator(dev).manual_seed(0)
         profile_steps(make_train_step(model, c, device=dev, generator=gen), b,
                       f"stage-1, nseg {c.nseg}")
-    rows += large_rows
+    rows += large_rows + voc_rows
     # each kernel's launches on each main path that runs it, and their sum
     by_path = {f"stage1_nseg{NSEG}": stage1_launches,
                f"stage1_nseg{NSEG_LARGE}": large_launches,
                "plbl": plbl_launches, "row_ops": row_launches,
-               "al_rounds": al_launches, "cli_recipe": cli_launches}
+               "al_rounds": al_launches, "cli_recipe": cli_launches,
+               "voc": voc_launches}
     launches = sum((Counter(n) for n in by_path.values()), Counter())
     check(all(launches[name] > 0 for name in KERNELS),
           f"a kernel was never launched on a main path: {dict(launches)}")

@@ -2,10 +2,13 @@
 config -> datasets -> active set (seed_everything, build_active_datasets
 :32-140, _build_val_dataset :190, setup_run :237).
 
-Ported: the synthetic fixture and the recipe's or_labeling branch
-(region_cityscapes_or_tensor and its _ignore twin, and the loader names
-the recipe's eval and stage-2 commands pass through it). The other
-branches raise, naming ROADMAP.md queue A, item 18.
+Ported: the synthetic fixture and the recipes' or_labeling branch
+(region_cityscapes_or_tensor and its _ignore twin, the VOC recipe's
+region_voc_or_tensor with identity label encoding, and the loader names
+the recipes' eval and stage-2 commands pass through it:
+eval_region_cityscapes_all, region_cityscapes_plbl, eval_region_voc_all_ms,
+region_voc_plbl). The other branches raise, naming ROADMAP.md queue A,
+item 18.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ mulactseg_tpu/cli/eval_al.py:
     python -m mulactseg_tpu_torch.cli.eval_al --init_checkpoint CKPT ...
 
     # pseudo-labels of the labelled set (the recipe's
-    # eval_save_cosplbl_prop_includeonehot)
+    # eval_save_cosplbl_prop_includeonehot; with --dataset voc or a method
+    # ending in _ms, the VOC recipe's, through the 10-view test-time
+    # augmentation of engine/tta.py)
     python -m mulactseg_tpu_torch.cli.eval_al --resume_checkpoint CKPT \\
         --method eval_save_cosplbl_prop_includeonehot \\
         --datalist_path datalist_01.json ...

@@ -1,6 +1,8 @@
 """Stage-2 retraining CLI, the port of mulactseg_tpu/cli/train_stage2.py:
-plain CE on the saved pseudo-label maps, a fresh C+1-class model a round
-(the reference's trainer/active_predignore.py:12-95).
+plain CE on the saved pseudo-label maps, a fresh model a round (C+1
+classes under active_predignore, the reference's
+trainer/active_predignore.py:12-95; VOC's 21 under active), through
+rescale_769_nospx on Cityscapes and rescale_513_notrg elsewhere.
 
     python -m mulactseg_tpu_torch.cli.train_stage2 --stage2 \\
         --method active_predignore --loader region_cityscapes_plbl \\

@@ -1,5 +1,7 @@
 """File-backed datasets of the PyTorch port: the recipe's loaders, ported
-from mulactseg_tpu/data/datasets.py with utils/png.py in place of Pillow.
+from mulactseg_tpu/data/datasets.py with utils/png.py and utils/jpeg.py in
+place of Pillow (images: PNG or baseline JPEG; labels: greyscale or
+palette PNG, the PASCAL VOC format).
 
 File formats (the reference's dataloader/region_cityscapes.py:48-153):
   - datalist .txt: three tab-separated paths per line (image, label,
@@ -32,6 +34,7 @@ import numpy as np
 
 from mulactseg_tpu_torch.data.constants import ID_TO_TRAIN_ID
 from mulactseg_tpu_torch.data.transforms import PairedTransform, normalize
+from mulactseg_tpu_torch.utils import jpeg
 from mulactseg_tpu_torch.utils.png import png_size, read_gray, read_rgb8
 
 _NOT_PORTED = "is not ported yet: ROADMAP.md queue A, item 18"
@@ -109,30 +112,42 @@ def spmask_from_selected(spx: np.ndarray, selected,
     return lut[np.minimum(spx, nseg)]
 
 
-def _png_only(path: str) -> str:
-    if not path.endswith(".png"):
-        raise ValueError(f"{path}: the port reads PNG images and labels "
-                         "only")
-    return path
+def _format(path: str) -> str:
+    """'png' or 'jpeg', from the file's first bytes; anything else
+    raises."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == b"\x89PNG\r\n\x1a\n":
+        return "png"
+    if head[:2] == b"\xff\xd8":
+        return "jpeg"
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+
+
+def _read_image(path: str) -> np.ndarray:
+    if _format(path) == "jpeg":
+        return jpeg.read_rgb8(path)
+    return read_rgb8(path)
 
 
 def open_image(path: str) -> np.ndarray:
-    """Decoded RGB uint8 (H, W, 3) (cached; treat as read-only)."""
-    return _decode_cache.get(("img", path),
-                             lambda: read_rgb8(_png_only(path)))
+    """Decoded RGB uint8 (H, W, 3) of a PNG or JPEG file (cached; treat as
+    read-only)."""
+    return _decode_cache.get(("img", path), lambda: _read_image(path))
 
 
 def image_size(path: str):
-    """(H, W) of an image file, from the cache or the PNG header."""
+    """(H, W) of an image file, from the cache or the file's header."""
     img = _decode_cache.peek(("img", path))
-    return img.shape[:2] if img is not None else png_size(_png_only(path))
+    if img is not None:
+        return img.shape[:2]
+    return jpeg.jpeg_size(path) if _format(path) == "jpeg" else png_size(path)
 
 
 def open_label(path: str) -> np.ndarray:
-    """Decoded raw greyscale label array (cached, before encoding;
-    read-only)."""
-    return _decode_cache.get(("lbl", path),
-                             lambda: read_gray(_png_only(path)))
+    """Decoded raw label array of a greyscale or palette PNG (cached,
+    before encoding; read-only)."""
+    return _decode_cache.get(("lbl", path), lambda: read_gray(path))
 
 
 def _open_spx_impl(path: str) -> np.ndarray:

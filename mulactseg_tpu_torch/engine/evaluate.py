@@ -39,7 +39,7 @@ class Evaluator:
         if cfg.sliding_eval:
             raise NotImplementedError(
                 "sliding-window eval (engine/sliding.py) is not ported yet: "
-                "ROADMAP.md queue A, item 13")
+                "ROADMAP.md queue A, item 15")
         self.model = model
         self.cfg = cfg
         self.dev = resolve_device(device)

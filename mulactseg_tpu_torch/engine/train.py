@@ -1,7 +1,8 @@
 """Training and eval steps: the port of mulactseg_tpu/engine/train.py for
-the recipe's two criteria, the fused lossdecomp of stage 1
-(active_joint_multi_predignore_lossdecomp) and the plain temperature CE of
-stage 2 (active_predignore).
+the recipes' criteria, the fused lossdecomp of stage 1
+(active_joint_multi_predignore_lossdecomp on Cityscapes' C+1-class model,
+active_joint_multi_lossdecomp on VOC's 21-class one) and the plain
+temperature CE of stage 2 (active_predignore; active on VOC).
 
 One eager step per call: forward (BN in train mode, conv stack under
 bfloat16 autocast on the card as cfg.dtype="bfloat16" asks), the criterion
@@ -57,7 +58,9 @@ def _ce_loss(cfg):
 
 CRITERIA: Dict[str, Callable] = {
     "active_joint_multi_predignore_lossdecomp": _lossdecomp_loss,
+    "active_joint_multi_lossdecomp": _lossdecomp_loss,
     "active_predignore": _ce_loss,
+    "active": _ce_loss,
 }
 
 

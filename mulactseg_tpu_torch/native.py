@@ -1,11 +1,15 @@
 """The host-side C++ of the loader: csrc/resample.cpp (the port's copy of
 mulactseg_tpu/native/resample.cpp: Pillow's uint8 bilinear resample,
-byte for byte, and the label gather of the random scaled crop) and
-csrc/png_unfilter.cpp (the PNG row filters undone, for utils/png.py).
+byte for byte, and the label gather of the random scaled crop),
+csrc/png_unfilter.cpp (the PNG row filters undone, for utils/png.py) and
+csrc/jpeg_decode.cpp (baseline JPEG decoding as libjpeg does it, for
+utils/jpeg.py).
 
-`lib()` compiles both with g++ on first use into
+`lib()` compiles them with g++ on first use into
 mulactseg_tpu_torch/_build/ (git-ignored) as host-<hash>.so, the hash
-over the sources and the flags, and loads it with ctypes; each call
+over the sources, the flags and the host CPU (-march=native builds for
+it, so a tree copied to another machine builds its own library), and
+loads it with ctypes; each call
 releases the GIL. The flags are the JAX package's: without
 -ffp-contract=off the compiler fuses the coefficient arithmetic into FMAs
 and about 1e-4 of the box-resampled pixels move by one step, so the bytes
@@ -18,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import threading
 from pathlib import Path
@@ -26,7 +31,8 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = (_PKG / "csrc" / "resample.cpp",
-           _PKG / "csrc" / "png_unfilter.cpp")
+           _PKG / "csrc" / "png_unfilter.cpp",
+           _PKG / "csrc" / "jpeg_decode.cpp")
 BUILD_DIR = _PKG / "_build"
 FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
          "-fPIC", "-shared")
@@ -34,11 +40,26 @@ _LOCK = threading.Lock()
 _LIB = None
 
 
+def _cpu() -> bytes:
+    """The host CPU's vendor, model and instruction-set flags (the first
+    processor's entry of /proc/cpuinfo), or the platform's names where
+    there is no such file."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            first = f.read().split(b"\n\n")[0]
+    except OSError:
+        return f"{platform.machine()} {platform.processor()}".encode()
+    keep = (b"vendor_id", b"model name", b"flags", b"Features")
+    return b"\n".join(line for line in first.splitlines()
+                      if line.split(b":")[0].strip() in keep)
+
+
 def build() -> Path:
-    """Compiles the sources unless these sources and flags are built;
-    returns the library's path. Raises if g++ fails."""
+    """Compiles the sources unless these sources and flags are built for
+    this CPU; returns the library's path. Raises if g++ fails."""
     src = b"".join(p.read_bytes() for p in SOURCES)
-    tag = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(src + " ".join(FLAGS).encode()
+                         + _cpu()).hexdigest()[:16]
     out = BUILD_DIR / f"host-{tag}.so"
     if out.exists():
         return out
@@ -68,6 +89,8 @@ def lib() -> ctypes.CDLL:
                 fn.restype = None
             L.png_unfilter.argtypes = [p, i64, i64, i64, p]
             L.png_unfilter.restype = ctypes.c_int
+            L.jpeg_decode.argtypes = [p, i64, ctypes.c_int, ctypes.c_int, p]
+            L.jpeg_decode.restype = ctypes.c_int
             _LIB = L
     return _LIB
 

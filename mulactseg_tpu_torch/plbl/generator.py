@@ -9,7 +9,10 @@ C+1-class confusion matrix against the precise GT and is saved as
 <save_dir>/<label id>.png (path convention of
 trainer/eval_save_cosplbl_prop.py:35-44, scores :88-117). The host work of
 the next image (prototype table, adjacency) runs on one worker thread
-meanwhile.
+meanwhile. With use_tta (the VOC recipe's
+eval_save_cosplbl_prop_includeonehot_voc_ms), the forward is the 10-view
+test-time augmentation of engine/tta.py, whose averaged features stay
+float32.
 
 Type -> reference generator:
   cosprop                      eval_save_cosplbl_prop.py
@@ -19,8 +22,8 @@ Type -> reference generator:
   cos_withinspx_includeonehot / cosplbl   eval_save_cosplbl.py,
                                           eval_save_plbl.py
   cosplbl_filtgt               eval_save_cosplbl_filtgt.py
-The other types of PLBL_TYPES, test-time augmentation and save_vis are
-not ported yet (ROADMAP.md queue A, item 15).
+The other types of PLBL_TYPES and save_vis are not ported yet (ROADMAP.md
+queue A, item 15).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from torch.profiler import record_function
 
 from mulactseg_tpu_torch.device import resolve_device
 from mulactseg_tpu_torch.engine.evaluate import eval_forward
+from mulactseg_tpu_torch.engine.tta import tta_feat_forward
 from mulactseg_tpu_torch.plbl.cosine_prop import (
     cosine_prototype_plbl,
     selected_spx_adjacency,
@@ -98,18 +102,18 @@ class PseudoLabelGenerator:
         if plbl_type not in _COS_TYPES:
             raise NotImplementedError(f"plbl type {plbl_type!r} "
                                       + _NOT_PORTED)
-        if use_tta:
-            raise NotImplementedError("test-time augmentation "
-                                      + _NOT_PORTED)
         self.model = model
         self.cfg = cfg
         self.plbl_type = plbl_type
+        self.use_tta = use_tta
         self.max_protos = max_protos
         self.dev = resolve_device(device)
         self.autocast = self.dev.type == "cuda" and cfg.dtype == "bfloat16"
-        # bf16 feature hand-off and similarities when the network computes
-        # in bf16 (JAX generator.py:184-191, 237)
+        # bf16 similarities when the network computes in bf16, and a bf16
+        # feature hand-off too, but for TTA, whose views average float32
+        # features (JAX generator.py:184-191, 237, 652-655)
         self.sim_bf16 = cfg.dtype == "bfloat16"
+        self.feat_bf16 = self.sim_bf16 and not use_tta
 
     def generate(self, model_state, loader: Iterable, *,
                  save_dir: Optional[str] = None,
@@ -195,10 +199,14 @@ class PseudoLabelGenerator:
         H, W = spx_map.shape
         P = H * W
         with record_function("plbl.forward"):
-            feat, logits = eval_forward(self.model, batch["images"],
-                                        self.dev, self.autocast,
-                                        return_feat=True,
-                                        feat_bf16=self.sim_bf16)
+            if self.use_tta:
+                feat, logits = tta_feat_forward(self.model, batch["images"],
+                                                self.dev, self.autocast)
+            else:
+                feat, logits = eval_forward(self.model, batch["images"],
+                                            self.dev, self.autocast,
+                                            return_feat=True,
+                                            feat_bf16=self.feat_bf16)
         with record_function("plbl.softmax"):
             probs = torch.softmax(logits[0].float(), dim=0)  # (C, H, W)
 

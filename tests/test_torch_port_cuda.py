@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1-K10) against their plain PyTorch versions on
 the card, at small and ragged shapes the recipe run does not reach (HW not
-a multiple of the block, C from 3 to 31, underflow, absent segments).
+a multiple of the block, C from 3 to 31, underflow, absent segments), and
+at the VOC recipe's instance of K1-K4 (C = 21 at run time, HW % 4 != 0).
 
 Marked `cuda`: each test skips without a card. On a machine with one
 (no JAX needed):
@@ -76,7 +77,9 @@ def _bits(rng, B, C, HW):
 @pytest.mark.parametrize("B,C,HW,offset", [
     (2, 20, 33 * 31, 0), (1, 3, 700, 0), (3, 31, 4096, 0),
     (2, 20, 4096, 0), (2, 20, 4097, 0), (1, 7, 4098, 0), (2, 20, 4099, 0),
-    (2, 20, 4096, 1), (1, 3, 700, 3)])
+    (2, 20, 4096, 1), (1, 3, 700, 3),
+    # VOC stage 1: C = 21 at run time, HW = 513 * 513 odd (a band of it)
+    (2, 21, 513 * 7, 0), (1, 21, 4097, 2)])
 def test_pixel_ce_kernels_match_plain(dev, B, C, HW, offset):
     """K1 and K2 on both class instances (C = 20 compiled, others at run
     time) and both layouts: 16-byte loads where HW % 4 == 0 and the
@@ -199,7 +202,10 @@ def _segments_of(kind, rng, B, C, HW, underflow):
     ("collide", 2, 20, 2 * SPAN + 100, False),
     ("distinct", 1, 20, 2 * SPAN + 5, False),
     ("whole", 2, 7, SPAN + 333, False), ("whole", 2, 20, SPAN + 333, True),
-    ("ties", 2, 20, 2 * SPAN, False)])
+    ("ties", 2, 20, 2 * SPAN, False),
+    # VOC stage 1: C = 21 at run time, HW = 513 * 513 odd (a band of it)
+    ("runs", 2, 21, 513 * 7, False), ("runs", 2, 21, 513 * 7, True),
+    ("collide", 2, 21, 2 * SPAN + 513, False)])
 def test_segment_kernels_match_plain(dev, kind, B, C, HW, underflow):
     """K3 against its plain version, then K4 on K3's outputs (which meet
     K4's precondition) against the dense plain backward. HW is ragged
@@ -252,9 +258,11 @@ def test_segment_kernels_match_plain(dev, kind, B, C, HW, underflow):
     assert (dl - want).abs().max() <= 8 * 2.0 ** -23 * operand
 
 
-def test_lossdecomp_on_card_matches_cpu(dev):
+@pytest.mark.parametrize("C,H,W,nseg", [(20, 37, 29, 12),
+                                        (21, 41, 33, 30)])  # VOC: C = 21
+def test_lossdecomp_on_card_matches_cpu(dev, C, H, W, nseg):
     rng = np.random.RandomState(3)
-    B, C, H, W, nseg = 2, 20, 37, 29, 12
+    B = 2
     spx = np.stack([irregular_superpixels(H, W, nseg, rng)
                     for _ in range(B)]).astype(np.int32)
     target = (rng.rand(B, nseg, C) < 0.2).astype(np.float32)

@@ -198,10 +198,15 @@ def test_superpixel_files_read_as_the_jax_package_reads_them(tmp_path):
         g16, np.asarray(Image.open(paths["s16.png"])))
     with pytest.raises(ValueError, match="8-bit greyscale"):
         read_gray8(paths["s16.png"])
-    Image.fromarray(np.zeros((4, 4), np.uint8)).convert("P").save(
+    # a palette file reads as its index map, as Pillow gives it (VOC's
+    # label format); a 1-bit greyscale one is refused
+    Image.fromarray((spx % 7).astype(np.uint8)).convert("P").save(
         str(tmp_path / "p.png"))
+    np.testing.assert_array_equal(read_gray(str(tmp_path / "p.png")),
+                                  np.asarray(Image.open(tmp_path / "p.png")))
+    Image.fromarray(spx % 2 == 0).save(str(tmp_path / "b.png"))
     with pytest.raises(ValueError, match="16-bit greyscale"):
-        read_gray(str(tmp_path / "p.png"))
+        read_gray(str(tmp_path / "b.png"))
     with pytest.raises(ValueError, match="unsupported"):
         pd.open_spx(str(tmp_path / "s.jpg"))
 

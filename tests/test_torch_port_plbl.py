@@ -332,8 +332,10 @@ def test_generator_types_and_names_match_jax():
                   "within_multihot", "candidate_prop"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PseudoLabelGenerator(model, cfg, ptype, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PseudoLabelGenerator(model, cfg, use_tta=True, device="cpu")
+    tta = PseudoLabelGenerator(model, Config(num_classes=5, nseg=16,
+                                             dtype="bfloat16"),
+                               use_tta=True, device="cpu")
+    assert tta.use_tta and tta.sim_bf16 and not tta.feat_bf16
     with pytest.raises(KeyError):
         PseudoLabelGenerator(model, cfg, "no_such_type", device="cpu")
     gen = PseudoLabelGenerator(model, Config(num_classes=5, nseg=16,

@@ -215,9 +215,10 @@ def test_optimizer_matches_optax_on_shared_gradients():
 
 def test_criteria_registry():
     assert list(CRITERIA) == ["active_joint_multi_predignore_lossdecomp",
-                              "active_predignore"]
+                              "active_joint_multi_lossdecomp",
+                              "active_predignore", "active"]
     with pytest.raises(KeyError, match="available"):
-        get_criterion(Config(method="active_joint_multi_lossdecomp"))
+        get_criterion(Config(method="active_joint_multi"))
 
 
 def test_synthetic_and_bit_packer_copies_match_jax():
