@@ -65,6 +65,29 @@
    9217, so K6 and K5; about 8 pixels per segment). Every gradient entry
    must lie within 1e-5 of the largest, except in a segment holding a K6
    value that rounds to bf16 the other way on the card.
+8.1. The rest of the model zoo (zoo): each of ZOO_NAMES (the DeepLabV3
+   and DeepLabV2 heads over ResNet-50/101 and MobileNetV2, and DeepLabV3+
+   over MobileNetV2, separable) at full width, 20 outputs, OS16, from its
+   own seeded weights carried by models/convert.py: its eval logits on
+   the card against the CPU at 96x80 in float32 with TF32 off (max abs
+   error within 1e-4 of the largest logit), then 1 + 5 stage-1 steps of
+   the recipe's fused lossdecomp at batch 4, 768x768, nseg 2048, bf16,
+   counted: K1-K4 once a step, finite losses. Per model: parameters,
+   step ms, img/s, peak GiB.
+8.2. The criteria beside the recipe's (criteria), on the recipe model at
+   the same shape from the seeded weights each time: first K5 at the
+   group term's instance, one image's softmax planes at T = 0.1 under the
+   ids of its selected superpixels (about half), held bitwise against its
+   plain version and timed; then every criterion of CRITERIA_CASES (the
+   joint criterion for 3 + 20 steps, the others and the unfused
+   lossdecomp, a batch without target bits, for 1 + 5), and the joint
+   criterion once more with SGD and the constant schedule, each with
+   every launch counter set to 0 just before and read just after: K5 once
+   an image and step for a group term (twice for wgroup, never for
+   multice_precise), K1-K4 never, finite losses. Then every criterion on
+   the card against the CPU at 96x80, nseg 24 (small_criteria_check), and
+   the group term on N(0, 1) logits, which saturate the softmax, on the
+   card and on the CPU against a float64 run (saturated_group_check).
 8a. The active-learning main path, from a file of the seeded weights
    named like the recipe's ImageNet init (so the final classifier is
    stripped): run_al_rounds for 2 rounds on a SyntheticRegionDataset at
@@ -159,14 +182,17 @@
    device time per step by kind of kernel and of each loss kernel, the
    top kernels and the device's idle share. Every timed run comes before these passes.
 
-Prints, before the last line, the slices' numbers (the al_rounds line:
+Prints, at the end and in compact JSON so that the last 24 kB of the
+output hold them all, the slices' numbers (the zoo and criteria lines,
+items 8.1-8.2; the cli_recipe line, item 8b; the voc_recipe line, item
+8c; evaluation; stage 1 at both nseg; plbl; the al_rounds line:
 per round the selection seconds, train img/s, validations, eval mIoU,
 checkpoint save and load seconds; then plbl img/s, stage-2 img/s and mIoU,
-peak memory and the card; the cli_recipe line, item 8b; the voc_recipe
-line, item 8c) and one JSON line with
-each kernel's check and times (K5 three times: at plbl's shapes, on K6's
-planes and on a VOC plbl image; K1-K4 twice: at Cityscapes' and VOC's
-stage-1 shapes), its launches on each main path (launches_by_path) and
+peak memory and the card), the card's name and power limit, and one JSON
+line with each kernel's check and times (K5 four times: at plbl's
+shapes, on K6's planes, on a VOC plbl image and at the group term's
+instance; K1-K4 twice: at Cityscapes' and VOC's stage-1 shapes), its
+launches on each main path (launches_by_path) and
 their sum (launches); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero; there is no CPU fallback.
@@ -214,6 +240,17 @@ CLI_TRAIN, CLI_VAL, CLI_ITRS, CLI_VAL_PERIOD, CLI_ROUNDS = 16, 4, 12, 6, 2
 VOC_TRAIN, VOC_VAL, VOC_ITRS, VOC_VAL_PERIOD, VOC_ROUNDS = 16, 4, 12, 6, 2
 VOC_S2_ITRS, VOC_S2_VAL_PERIOD = 10, 5
 VOC_B, VOC_CROP, VOC_NSEG, VOC_CLASSES = 12, 513, 150, 21
+# the rest of the model zoo: each model at full width (20 outputs, OS16,
+# separable where "plus") for ZOO_WARMUP + ZOO_TIMED stage-1 steps on the
+# recipe's fused criterion; its eval logits on the card against the CPU
+# at ZOO_EVAL_HW in float32, TF32 off, within ZOO_EVAL_RTOL of the largest
+ZOO_NAMES = ("deeplabv3_resnet50", "deeplabv3_resnet101",
+             "deeplabv3_mobilenet", "deeplabv3plus_mobilenet",
+             "deeplabv2_resnet101", "deeplabv2_mobilenet")
+ZOO_WARMUP, ZOO_TIMED, ZOO_EVAL_HW, ZOO_EVAL_RTOL = 1, 5, (96, 80), 1e-4
+# the criteria beside the recipe's, at the stage-1 shape: CRIT_WARMUP +
+# CRIT_TIMED steps each (the joint criterion as many as stage 1)
+CRIT_WARMUP, CRIT_TIMED = 1, 5
 TIMING_RUNS, REPEATS = 20, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -1058,6 +1095,456 @@ def small_reference_check(dev, h=96, w=80, nseg=24):
           f"{int((bad_pix & ~may_differ).sum())} pixels outside the "
           f"segments of the {flips} values that round differently")
     return int(bad.sum()), flips
+
+
+def run_steps(step, batches, warmup, timed):
+    """warmup steps, then `timed` ones in windows of WINDOW steps (the
+    last window shorter), each timed to a synchronise at its end.
+    Returns (the last step's losses as floats, window seconds, steps
+    per window)."""
+    for i in range(warmup):
+        aux = step(batches[i % len(batches)])
+    torch.cuda.synchronize()
+    window_s, sizes, done = [], [], 0
+    while done < timed:
+        n = min(WINDOW, timed - done)
+        ts = time.perf_counter()
+        for i in range(n):
+            aux = step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        window_s.append(time.perf_counter() - ts)
+        sizes.append(n)
+        done += n
+    return {k: float(v) for k, v in aux.items()}, window_s, sizes
+
+
+def zoo_eval_check(name, model, variables, dev):
+    """Eval logits of `model` (seeded weights `variables`) on the card
+    against the same model on the CPU, one ZOO_EVAL_HW image, float32 with
+    TF32 off: max abs error over the largest |logit|."""
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.models.factory import get_model
+
+    cpu = get_model(name, NUM_CLASSES, 16, separable_conv=True,
+                    device="cpu")
+    convert.load_variables(cpu, variables)
+    x = torch.from_numpy(np.random.RandomState(21).randn(
+        1, 3, *ZOO_EVAL_HW).astype(np.float32))
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            model.eval()
+            got = model(x.to(dev)).cpu()
+            want = cpu.eval()(x)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+        model.train()
+    check(got.shape == (1, NUM_CLASSES, *ZOO_EVAL_HW)
+          and bool(torch.isfinite(got).all()), f"{name}: bad eval logits")
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
+def zoo_slice(dev, smi, batches):
+    """The six models the port added last (ZOO_NAMES), each at full width
+    from its own seeded weights: eval logits on the card against the CPU,
+    then ZOO_WARMUP + ZOO_TIMED stage-1 steps of the recipe's fused
+    lossdecomp at batch B, HxW, nseg NSEG, bf16, counted (K1-K4 once a
+    step). Returns (the zoo line, launches)."""
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.engine.train import make_train_step
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.models.factory import get_model
+    from mulactseg_tpu_torch.ops import _build
+
+    out, launches = {}, Counter()
+    steps = ZOO_WARMUP + ZOO_TIMED
+    for i, name in enumerate(ZOO_NAMES):
+        cfg = Config(num_classes=NUM_CLASSES - 1, nseg=NSEG,
+                     crop_size=(H, W), train_batch_size=B, dtype="bfloat16",
+                     separable_conv=True, model=name,
+                     method="active_joint_multi_predignore_lossdecomp")
+        model = get_model(name, cfg.num_model_classes, cfg.output_stride,
+                          separable_conv=cfg.separable_conv, device=dev)
+        variables = convert.random_variables(model, seed=100 + i)
+        convert.load_variables(model, variables)
+        err = zoo_eval_check(name, model, variables, dev)
+        step = make_train_step(model, cfg, device=dev,
+                               generator=torch.Generator(dev).manual_seed(0))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        losses, window_s, sizes = run_steps(step, batches, ZOO_WARMUP,
+                                            ZOO_TIMED)
+        got = dict(_build.LAUNCHES)
+        check(got == {k: steps for k in STAGE1_KERNELS},
+              f"{name}: launches {got}, want each of {STAGE1_KERNELS} "
+              f"{steps} times")
+        check(all(math.isfinite(v) for v in losses.values()),
+              f"{name}: non-finite loss {losses}")
+        check(err <= ZOO_EVAL_RTOL,
+              f"{name}: card eval logits off the CPU's by {err} of the "
+              "largest")
+        launches += Counter(got)
+        dt = sum(window_s)
+        out[name] = {
+            "params": sum(p.numel() for p in model.parameters()),
+            "step_ms": dt / ZOO_TIMED * 1e3, "img_per_s": B * ZOO_TIMED / dt,
+            "window_step_ms": [t / n * 1e3 for t, n in zip(window_s, sizes)],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "eval_rel_err_vs_cpu": err, **losses}
+        print(f"zoo {name}: {json.dumps(out[name])}", flush=True)
+        del step, model
+        torch.cuda.empty_cache()
+    return {"zoo": out, "card": smi, "batch": B, "crop": [H, W],
+            "nseg": NSEG, "steps": steps, "timed_steps": ZOO_TIMED}, launches
+
+
+# criteria beside the recipe's: (case, method, Config overrides, K5
+# launches per image and step); the ablation's rand_multi_ce samples
+CRITERIA_CASES = (
+    ("joint_predignore", "active_joint_multi_predignore", {}, 1),
+    ("joint", "active_joint_multi", {}, 1),
+    ("mclossablation2", "active_joint_multi_predignore_mclossablation2", {},
+     1),
+    ("precise", "active_joint_multi_predignore_precise", {}, 1),
+    ("multice_precise", "active_joint_multi_predignore_multice_precise", {},
+     0),
+    ("multient", "active_joint_multi_predignore_multient", {}, 1),
+    ("exclusivece", "active_joint_multi_predignore_exclusivece", {}, 1),
+    ("lossdecomp_rc", "active_joint_multi_lossdecomp_rc", {}, 1),
+    ("lossdecomp_topone", "active_joint_multi_lossdecomp_topone", {}, 1),
+    ("pwce", "active_pwce_multi_predignore", {}, 1),
+    ("top1plbl", "active_joint_multi_predignore_top1plbl", {}, 1),
+    ("mclossablation", "active_joint_multi_predignore_mclossablation", {},
+     1),
+    ("lscale", "active_joint_multi_predignore_lscale", {}, 1),
+    ("wgroup", "active_joint_multi_predignore_wgroup", {}, 2),
+    ("ablation", "active_joint_multi_ablation",
+     {"loss_type": "rand_multi_ce"}, 1),
+    ("sequence", "active_joint_multi_predignore_sequence", {}, 1),
+    ("logprecision", "active_joint_multi_predignore_logprecision", {}, 1),
+    ("lossdecomp_unfused", "active_joint_multi_predignore_lossdecomp", {},
+     1),
+)
+SLICED = ("active_joint_multi", "active_joint_multi_ablation")
+
+
+def criteria_batch(batch, method, case):
+    """A stage-1 batch for `case`: spmask and labels added; the targets
+    given the extra (undefined) channel where the criterion slices it
+    off; no target bits for the unfused fallback."""
+    out = dict(batch)
+    if method in SLICED:
+        t = out["target"]
+        out["target"] = np.concatenate(
+            [t, np.zeros(t.shape[:-1] + (1,), t.dtype)], axis=-1)
+    if case == "lossdecomp_unfused":
+        del out["target_bits"]
+    return out
+
+
+def with_regions(batches, seed):
+    """make_batches' batches with a selection mask and labels (random
+    classes, 10% 255). The mask is the pixels whose target bits are set:
+    the 50% selection of superpixels, less the ~4% of them with no
+    candidate (make_batches keeps no other record of the selection)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for b in batches:
+        labels = rng.randint(0, NUM_CLASSES, b["spx"].shape).astype(np.int32)
+        labels[rng.rand(*labels.shape) < 0.1] = 255
+        out.append({**b, "spmask": b["target_bits"] != 0, "labels": labels})
+    return out
+
+
+def criteria_slice(model, variables, dev, smi, batches):
+    """Every criterion beside the recipe's (CRITERIA_CASES) on the recipe
+    model at the stage-1 shape, from the seeded weights each time: K5 held
+    and timed at the group term's instance first, then each criterion's
+    steps with every launch counter set to 0 just before and read just
+    after (K5 its count per image and step, K1-K4 never), SGD with the
+    constant schedule once. Returns (the criteria line, launches, K5's
+    kernels-line row)."""
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.engine.train import _device_normalize
+    from mulactseg_tpu_torch.engine.train import make_train_step
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.ops import _build, segment_max
+
+    batches = with_regions(batches, 13)
+    # K5 at the group term's instance: one image's softmax planes at
+    # T = 0.1 under the ids of its selected superpixels
+    convert.load_variables(model, variables)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        logits = model(_device_normalize(
+            torch.as_tensor(batches[0]["images"]).to(dev)))
+    C, P = NUM_CLASSES, H * W
+    probs = torch.softmax(logits.float().reshape(B, C, P) / 0.1, dim=1)
+    del logits
+    planes = probs[0].t()
+    check(segment_max.layout(planes) == segment_max.PLANES,
+          "the group term's planes do not take K5's PLANES path")
+    spx0 = batches[0]["spx"][0].reshape(-1)
+    sel0 = batches[0]["spmask"][0].reshape(-1)
+    sid = torch.from_numpy(np.where(sel0, spx0, NSEG).astype(np.int32)).to(
+        dev)
+    err = check_k5(planes, sid, "group term, 768x768 image")
+    n_valid = int((sid < NSEG).sum())
+    row = ("seg_max_fwd@group term, 768x768 image", err,
+           time_ms(lambda: segment_max.seg_max_fwd(planes, sid, NSEG),
+                   graph=True),
+           time_ms(lambda: segment_max.segment_max_plain(planes, sid, NSEG)),
+           bound(P * 4 + n_valid * C * 4 + NSEG * C * 8, n_valid * C), None)
+    print(f"K5 at the group term's instance bitwise equal to its plain "
+          f"version; {n_valid} of {P} pixels valid; {row[2]:.4f} ms "
+          f"(bound {row[4][0]:.4f})", flush=True)
+    del probs, planes
+
+    out, launches = {}, Counter()
+    runs = [(case, method, over, k5) for case, method, over, k5
+            in CRITERIA_CASES]
+    runs.append(("joint_predignore_sgd_constant",
+                 "active_joint_multi_predignore",
+                 {"optimizer": "sgd", "scheduler": "constant"}, 1))
+    for case, method, over, k5 in runs:
+        cfg = Config(num_classes=NUM_CLASSES - 1, nseg=NSEG, crop_size=(H, W),
+                     train_batch_size=B, dtype="bfloat16",
+                     separable_conv=True, method=method, **over)
+        warmup, timed = ((WARMUP, TIMED) if case == "joint_predignore"
+                         else (CRIT_WARMUP, CRIT_TIMED))
+        bs = [criteria_batch(b, method, case) for b in batches]
+        convert.load_variables(model, variables)
+        step = make_train_step(model, cfg, device=dev,
+                               generator=torch.Generator(dev).manual_seed(0))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        losses, window_s, sizes = run_steps(step, bs, warmup, timed)
+        got = dict(_build.LAUNCHES)
+        steps = warmup + timed
+        want = {"seg_max_fwd": k5 * B * steps} if k5 else {}
+        check(got == want, f"criterion {case}: launches {got}, want {want}")
+        check(all(math.isfinite(v) for v in losses.values()),
+              f"criterion {case}: non-finite loss {losses}")
+        if over.get("scheduler") == "constant":
+            lrs = [g["lr"] for g in step.optimizer.param_groups]
+            check(lrs == [cfg.train_lr, cfg.train_lr * cfg.cls_lr_scale]
+                  and isinstance(step.optimizer, torch.optim.SGD),
+                  f"SGD with the constant schedule: lrs {lrs}")
+        launches += Counter(got)
+        dt = sum(window_s)
+        out[case] = {"method": method, "step_ms": dt / timed * 1e3,
+                     "img_per_s": B * timed / dt,
+                     "window_step_ms": [t / n * 1e3 for t, n
+                                        in zip(window_s, sizes)],
+                     "k5_per_step": got.get("seg_max_fwd", 0) / steps,
+                     "steps": steps,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated()
+                     / 2 ** 30, **losses}
+        print(f"criterion {case}: {json.dumps(out[case])}", flush=True)
+        del step
+    convert.load_variables(model, variables)
+    torch.cuda.empty_cache()
+    return {"criteria": out, "card": smi, "batch": B, "crop": [H, W],
+            "nseg": NSEG}, launches, row
+
+
+def near_tie_pixels(probs, sid, nseg, rel=1e-6):
+    """(B, P) bool: the pixels of a segment where, for some class, two
+    pixels' probabilities (probs (B, C, P), compared in float64) lie
+    within `rel` of the larger. sid (B, P), ids == nseg invalid. The one
+    definition of a near-tie that this script and the port's tests
+    exempt from argmax comparisons: two float32 softmaxes that differ in
+    the last bits may pick either pixel."""
+    p = torch.as_tensor(probs).double()
+    B, C, P = p.shape
+    sid = torch.as_tensor(sid, device=p.device).long().reshape(B, P)
+    idx = sid[:, None].expand(B, C, P)
+    top = p.new_zeros(B, C, nseg + 1).scatter_reduce(2, idx, p, "amax")
+    near = (p >= top.gather(2, idx) * (1.0 - rel)).double()
+    n = p.new_zeros(B, C, nseg + 1).scatter_add(2, idx, near)
+    tie = (n[..., :nseg] >= 2).any(dim=1)
+    tie = torch.cat([tie, tie.new_zeros(B, 1)], dim=1)
+    return tie.gather(1, sid)
+
+
+def group_term_float64(logits, target, spx, spmask, nseg, temp=0.1,
+                       only_multi=False):
+    """A plain float64 group_multi_label_ce (mulactseg_tpu/losses/
+    partial.py:64-107, all target channels, no slicing) on numpy inputs
+    (logits (B, C, H, W), target (B, S, C), spx and spmask (B, H, W)):
+    (loss, d loss / d logits, unit), the witness that float32 runs of the
+    group term are held against where their own rounding is the
+    question. unit (B, C, H, W) is one float32 rounding unit of each
+    gradient entry's operands: the softmax backward p_k (u_k - sum_j u_j
+    p_j) / T, with u = d loss / d p, cancels, and each p_k carries the
+    rounding of its exponent, up to max_j |x_j| / T units, so
+    unit_k = 2^-24 p_k (|u_k| + sum_j |u_j| p_j) (1 + max_j |x_j| / T) / T
+    (p_k at least the smallest normal float32)."""
+    x = torch.from_numpy(logits).double().requires_grad_(True)
+    B, C = x.shape[:2]
+    p = torch.softmax(x.reshape(B, C, -1) / temp, dim=1)
+    p.retain_grad()
+    P = p.shape[-1]
+    spx = torch.from_numpy(spx).reshape(B, P).long()
+    mask = torch.from_numpy(spmask).reshape(B, P).bool()
+    trg = torch.from_numpy(target).double()
+    if only_multi:
+        mask = mask & (trg.sum(dim=-1) > 1).gather(1, spx.clamp(0, nseg - 1))
+    sid = torch.where(mask, spx, nseg)[:, None].expand(B, C, P)
+    pd = p.detach()
+    top = pd.new_full((B, C, nseg + 1), -1.0).scatter_reduce(2, sid, pd,
+                                                             "amax")
+    at = torch.where(pd == top.gather(2, sid), torch.arange(P), P)
+    first = torch.full((B, C, nseg + 1), P).scatter_reduce(
+        2, sid, at, "amin")[..., :nseg]
+    entry = (trg.transpose(1, 2) > 0.5) & (first < P)
+    nll = -torch.log(p.gather(2, first.clamp(max=P - 1)) + 1e-8)
+    loss = torch.where(entry, nll, 0.0).sum() / (1.0 + entry.sum())
+    loss.backward()
+    u = p.grad.abs()
+    z = x.detach().reshape(B, C, P).abs().amax(dim=1, keepdim=True) / temp
+    unit = 2.0 ** -24 * pd.clamp(min=2.0 ** -126) * (
+        u + (u * pd).sum(dim=1, keepdim=True)) * (1.0 + z) / temp
+    return float(loss.detach()), x.grad, unit.reshape(x.shape)
+
+
+def small_criteria_check(dev, h=96, w=80, nseg=24):
+    """Every criterion of CRITERIA_CASES on the card against the CPU on
+    one small input (B 2, N(0, 0.2^2) logits, which leave the T = 0.1
+    softmax unsaturated: at N(0, 1) each float32 group term, the card's,
+    the CPU's and JAX's, strays from float64 past 1e-5 of its largest
+    gradient entry, see saturated_group_check; for the needs_feat
+    criteria random
+    features and eval logits; one-hot targets for the sampling ablation,
+    whose pick is then forced): loss and parts within rtol 1e-5,
+    the gradient finite where the CPU's is and within 1e-5 of its largest
+    entry outside segments with a near-tie (two probabilities of a class
+    within 1e-6), as the CPU tests hold the port against JAX. Returns the
+    number of gradient entries inside near-ties that differ."""
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.data.synthetic import irregular_superpixels
+    from mulactseg_tpu_torch.engine.train import CRITERIA
+
+    rng = np.random.RandomState(15)
+    b, ct = 2, NUM_CLASSES
+    spx = np.stack([irregular_superpixels(h, w, nseg, rng)
+                    for _ in range(b)]).astype(np.int32)
+    kinds = rng.choice(3, (b, nseg), p=[0.15, 0.45, 0.4])
+    target = np.zeros((b, nseg, ct + 1), np.float32)
+    for i in range(b):
+        for s in range(nseg):
+            n = (0, 1, rng.randint(2, 4))[kinds[i, s]]
+            target[i, s, rng.choice(ct, n, replace=False)] = 1.0
+    one_hot = np.zeros_like(target)
+    one_hot[np.arange(b)[:, None], np.arange(nseg)[None],
+            rng.randint(0, ct, (b, nseg))] = 1.0
+    spmask = np.take_along_axis(rng.rand(b, nseg) < 0.6, spx.reshape(b, -1),
+                                1).reshape(b, h, w)
+    labels = rng.randint(0, ct, (b, h, w)).astype(np.int32)
+    labels[rng.rand(b, h, w) < 0.2] = 255
+    feat = rng.randn(b, 16, h, w).astype(np.float32)
+    plbl = rng.randn(b, ct, h, w).astype(np.float32)
+    sid = torch.from_numpy(np.where(spmask, spx, nseg).reshape(b, -1))
+    tie_entries = 0
+    for case, method, over, _ in CRITERIA_CASES:
+        # 20 outputs; the sliced criteria read 21 target channels
+        tgt = one_hot if case == "ablation" else target
+        batch = {"target": tgt if method in SLICED else tgt[..., :ct],
+                 "spx": spx, "spmask": spmask, "labels": labels}
+        logits = (rng.randn(b, ct, h, w) * 0.2).astype(np.float32)
+        cfg = Config(num_classes=ct - 1, nseg=nseg, method=method,
+                     finetune_itrs=10, **over)
+        res = {}
+        for d in ("cpu", dev):
+            crit = CRITERIA[method](cfg)
+            x = torch.from_numpy(logits).to(d).requires_grad_(True)
+            tb = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+            if getattr(crit, "needs_feat", False):
+                total, aux = crit(x, tb, {
+                    "feat": torch.from_numpy(feat).to(d),
+                    "plbl_logits": torch.from_numpy(plbl).to(d),
+                    "frac": 0.25})
+            elif getattr(crit, "needs_rng", False):
+                total, aux = crit(x, tb, {"generator": torch.Generator(d)})
+            else:
+                total, aux = crit(x, tb)
+            total.backward()
+            res[str(d)] = ({k: float(v.detach()) for k, v in aux.items()},
+                           x.grad.cpu())
+        (ref, gref), (got, ggot) = res["cpu"], res[str(dev)]
+        for k in ref:
+            check(math.isclose(ref[k], got[k], rel_tol=1e-5, abs_tol=1e-7),
+                  f"small criterion {case} {k}: card {got[k]} vs cpu "
+                  f"{ref[k]}")
+        fin = torch.isfinite(gref)
+        check(torch.equal(fin, torch.isfinite(ggot)),
+              f"small criterion {case}: gradients finite in other places")
+        bad = fin & ((ggot - gref).abs() > 1e-5 * gref[fin].abs().max())
+        bad_pix = bad.any(dim=1).reshape(b, -1)
+        if bool(bad_pix.any()):
+            probs = torch.softmax(torch.from_numpy(logits).reshape(
+                b, ct, -1) / 0.1, dim=1)
+            ties = near_tie_pixels(probs, sid, nseg)
+            check(not bool((bad_pix & ~ties).any()),
+                  f"small criterion {case}: {int(bad.sum())} gradient "
+                  "entries differ outside near-ties")
+            tie_entries += int(bad.sum())
+    return tie_entries
+
+
+def saturated_group_check(dev, h=96, w=80, nseg=24, seed=16):
+    """The group term (active_joint_multi_predignore's, all 21 channels)
+    on N(0, 1) logits, which saturate the T = 0.1 softmax, on the card and
+    on the CPU against a float64 run (group_term_float64): the loss within
+    8 * 2^-24 * (1 + loss) and, outside near-ties, every gradient entry
+    within 8 float32 rounding units of its operands, on both. Returns the
+    readings: each side's largest error in units and as a share of the
+    largest gradient entry, and the share of pixels in near-ties."""
+    from mulactseg_tpu_torch.data.synthetic import irregular_superpixels
+    from mulactseg_tpu_torch.losses.partial import group_multi_label_ce
+
+    rng = np.random.RandomState(seed)
+    b, c = 2, NUM_CLASSES + 1
+    spx = np.stack([irregular_superpixels(h, w, nseg, rng)
+                    for _ in range(b)]).astype(np.int32)
+    target = np.zeros((b, nseg, c), np.float32)
+    for i in range(b):
+        for s in range(nseg):
+            n = rng.choice([0, 1, 2, 3], p=[0.15, 0.45, 0.25, 0.15])
+            target[i, s, rng.choice(c, n, replace=False)] = 1.0
+    spmask = np.take_along_axis(rng.rand(b, nseg) < 0.6, spx.reshape(b, -1),
+                                1).reshape(b, h, w)
+    logits = rng.randn(b, c, h, w).astype(np.float32)
+    l64, g64, unit = group_term_float64(logits, target, spx, spmask, nseg)
+    probs = torch.softmax(torch.from_numpy(logits).reshape(b, c, -1) / 0.1,
+                          dim=1)
+    sid = np.where(spmask, spx, nseg).reshape(b, -1)
+    ties = near_tie_pixels(probs, sid, nseg).reshape(b, 1, h, w)
+    out = {"tie_share": float(ties.double().mean())}
+    for d in ("cpu", dev):
+        x = torch.from_numpy(logits).to(d).requires_grad_(True)
+        loss = group_multi_label_ce(
+            x, *(torch.from_numpy(a).to(d) for a in (target, spx, spmask)),
+            nseg=nseg, temp=0.1, slice_last=False)
+        loss.backward()
+        err = torch.where(ties, 0.0, (x.grad.cpu().double() - g64).abs())
+        side = "card" if d == dev else "cpu"
+        lerr = abs(float(loss.detach()) - l64)
+        check(lerr <= 8 * 2.0 ** -24 * (1 + l64),
+              f"saturated group term, {side}: loss {float(loss.detach())} vs "
+              f"float64 "
+              f"{l64}")
+        check(bool((err <= 8 * unit).all()),
+              f"saturated group term, {side}: a gradient entry past 8 "
+              "float32 units of float64")
+        out[f"{side}_units"] = float((err / unit).nan_to_num(0.0).max())
+        out[f"{side}_of_max"] = float(err.max() / g64.abs().max())
+    return out
 
 
 def device_spans(prof):
@@ -2311,16 +2798,7 @@ def main():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    for i in range(WARMUP):
-        aux = step(batches[i % len(batches)])
-    torch.cuda.synchronize()
-    window_s = []
-    for _ in range(TIMED // WINDOW):
-        ts = time.perf_counter()
-        for i in range(WINDOW):
-            aux = step(batches[i % len(batches)])
-        torch.cuda.synchronize()
-        window_s.append(time.perf_counter() - ts)
+    losses, window_s, _ = run_steps(step, batches, WARMUP, TIMED)
     dt = sum(window_s)
     launches = dict(_build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2330,7 +2808,6 @@ def main():
     for name in STAGE1_KERNELS:
         check(launches[name] == steps,
               f"{name} launched {launches[name]} times in {steps} steps")
-    losses = {k: float(v) for k, v in aux.items()}
     check(all(math.isfinite(v) for v in losses.values()),
           f"non-finite loss {losses}")
 
@@ -2350,23 +2827,14 @@ def main():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    for i in range(WARMUP_LARGE):
-        aux = lstep(batches_large[i % len(batches_large)])
-    torch.cuda.synchronize()
-    large_window_s = []
-    for _ in range(TIMED_LARGE // WINDOW):
-        ts = time.perf_counter()
-        for i in range(WINDOW):
-            aux = lstep(batches_large[i % len(batches_large)])
-        torch.cuda.synchronize()
-        large_window_s.append(time.perf_counter() - ts)
+    large_losses, large_window_s, _ = run_steps(lstep, batches_large,
+                                                WARMUP_LARGE, TIMED_LARGE)
     large_launches = dict(_build.LAUNCHES)
     large_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     large_steps = WARMUP_LARGE + TIMED_LARGE
     check(large_launches == {k: large_steps for k in STAGE1_LARGE_KERNELS},
           f"nseg {NSEG_LARGE} launches {large_launches}, want each of "
           f"{STAGE1_LARGE_KERNELS} once per step and no ssm_fwd (K3)")
-    large_losses = {k: float(v) for k, v in aux.items()}
     check(all(math.isfinite(v) for v in large_losses.values()),
           f"non-finite loss at nseg {NSEG_LARGE}: {large_losses}")
     del lstep
@@ -2380,6 +2848,17 @@ def main():
           f"K6 values round differently on the card, {bad} gradient entries "
           "outside 1e-5 (all in their segments)", flush=True)
 
+    # the rest of the model zoo, then the criteria beside the recipe's at
+    # the stage-1 shape; before the first profiler pass too
+    torch.cuda.empty_cache()
+    zoo_line, zoo_launches = zoo_slice(dev, smi, batches)
+    crit_line, crit_launches, crit_row = criteria_slice(
+        model, variables, dev, smi, batches)
+    crit_line["small_check_tie_entries"] = small_criteria_check(dev)
+    crit_line["saturated_group_vs_float64"] = saturated_group_check(dev)
+    print(f"saturated group term against float64: "
+          f"{crit_line['saturated_group_vs_float64']}", flush=True)
+
     # the active-learning main path (rounds, plbl, stage 2), from a file of
     # the seeded weights; it comes before the first profiler pass too
     torch.cuda.empty_cache()
@@ -2391,14 +2870,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         cli_line, cli_launches = cli_recipe_slice(variables, dev, smi, tmp)
     shutdown_workers()  # the loader's worker processes
-    print(json.dumps(cli_line), flush=True)
     # the VOC recipe's commands over a VOC-format tree, its kernel
     # instances held first
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         voc_line, voc_launches, voc_rows = voc_recipe_slice(dev, smi, tmp)
     shutdown_workers()
-    print(json.dumps(voc_line), flush=True)
 
     # evaluation and pseudo-labelling at 1024x2048, from the seeded weights
     # again (BN in eval mode reads the running statistics)
@@ -2410,24 +2887,29 @@ def main():
     pcfg = Config(num_classes=NUM_CLASSES - 1, nseg=NSEG, dtype="bfloat16",
                   method=cfg.method)
     eval_stats = eval_slice(model, pcfg, dev)
-    print(json.dumps(eval_stats), flush=True)
     plbl_stats, plbl_launches = plbl_slice(model, pcfg, dev)
     small_plbl_check(dev)
     for c, b in ((cfg, batches), (lcfg, batches_large)):
         gen = torch.Generator(dev).manual_seed(0)
         profile_steps(make_train_step(model, c, device=dev, generator=gen), b,
                       f"stage-1, nseg {c.nseg}")
-    rows += large_rows + voc_rows
+    rows += large_rows + voc_rows + [crit_row]
     # each kernel's launches on each main path that runs it, and their sum
     by_path = {f"stage1_nseg{NSEG}": stage1_launches,
                f"stage1_nseg{NSEG_LARGE}": large_launches,
                "plbl": plbl_launches, "row_ops": row_launches,
                "al_rounds": al_launches, "cli_recipe": cli_launches,
-               "voc": voc_launches}
+               "voc": voc_launches, "zoo": zoo_launches,
+               "criteria": crit_launches}
     launches = sum((Counter(n) for n in by_path.values()), Counter())
     check(all(launches[name] > 0 for name in KERNELS),
           f"a kernel was never launched on a main path: {dict(launches)}")
 
+    # every slice's line at the end, so the last 24 kB of the output hold
+    # them all
+    compact = {"separators": (",", ":")}
+    for line in (zoo_line, crit_line, cli_line, voc_line, eval_stats):
+        print(json.dumps(line, **compact))
     print(json.dumps({
         "slice": "cityscapes stage-1 train step", "card": smi,
         "img_per_s": B * TIMED / dt, "step_ms": dt / TIMED * 1e3,
@@ -2436,7 +2918,7 @@ def main():
         "steps": steps, "peak_mem_gib": peak_gib,
         "ce_loss": losses["ce_loss"], "mc_loss": losses["mc_loss"],
         "group_loss": losses["group_loss"],
-        "train_loss": losses["train_loss"]}))
+        "train_loss": losses["train_loss"]}, **compact))
     large_dt = sum(large_window_s)
     print(json.dumps({
         "slice": f"cityscapes stage-1 train step, nseg {NSEG_LARGE} "
@@ -2445,9 +2927,9 @@ def main():
         "step_ms": large_dt / TIMED_LARGE * 1e3,
         "window_step_ms": [t / WINDOW * 1e3 for t in large_window_s],
         "timed_steps": TIMED_LARGE, "steps": large_steps,
-        "peak_mem_gib": large_peak_gib, **large_losses}))
-    print(json.dumps(plbl_stats))
-    print(json.dumps(al_line))
+        "peak_mem_gib": large_peak_gib, **large_losses}, **compact))
+    print(json.dumps(plbl_stats, **compact))
+    print(json.dumps(al_line, **compact))
     kernels = []
     for label, err, ms, plain_ms, (bound_ms, bound_by), lib_ms in rows:
         # a kernel timed at a second shape is labelled name@shape
@@ -2463,7 +2945,7 @@ def main():
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms})
     print(smi)
-    print(json.dumps({"kernels": kernels, "card": smi}))
+    print(json.dumps({"kernels": kernels, "card": smi}, **compact))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -53,9 +53,9 @@ class SyntheticRegionDataset:
     multi-hot, target_bits, spx, spmask over the selected superpixels);
     'active-ulabel' -> pool items (images, spx, labels = the multi-hot);
     'val' -> (images, GT labels). Images are normalised float32
-    (3, H, W). The JAX package's transform, smaller superpixel map and
-    weak views serve criteria not ported yet (ROADMAP.md queue A, items
-    10 and 14)."""
+    (3, H, W). The JAX package's transform option, smaller superpixel
+    map and weak views serve the criteria and loaders not ported yet
+    (ROADMAP.md queue A, items 14b and 18)."""
 
     def __init__(self, *, n_images=4, H=64, W=64, num_classes=5, nseg=16,
                  split="active-label", seed=0, ignore_frac=0.05):

@@ -4,7 +4,9 @@ One torch.save file per checkpoint, in the reference's round-checkpoint
 layout (trainer/base.py:281-294): 'model_state_dict' under the reference
 torch names (so the JAX package's models/torch_import.py reads it),
 'optimizer_state_dict' and 'step'. The file names are the JAX package's
-(checkpointNN, stage2_checkpointNN; no extension).
+(checkpointNN, stage2_checkpointNN; no extension). Readers take the
+optimizer state from 'optimizer_state_dict' or, in files the reference
+wrote, 'opt_state_dict' (optimizer_state).
 
 merge_pretrained is the reference's "ImageNet init with the classifier
 stripped" load (trainer/active_joint_multi_predignore.py:146-173): every
@@ -42,6 +44,16 @@ def load_checkpoint(path: str) -> Dict:
     """The payload dict, every tensor on the CPU."""
     return torch.load(os.path.abspath(path), map_location="cpu",
                       weights_only=True)
+
+
+def optimizer_state(payload: Dict) -> Optional[Dict]:
+    """The optimizer state of a checkpoint payload: 'optimizer_state_dict'
+    (the port's files) or 'opt_state_dict' (the reference's,
+    trainer/base.py:281-294); None when it holds neither."""
+    for key in ("optimizer_state_dict", "opt_state_dict"):
+        if payload.get(key):
+            return payload[key]
+    return None
 
 
 def _is_classifier_final(name: str) -> bool:

@@ -33,12 +33,14 @@ from mulactseg_tpu_torch.device import resolve_device
 from mulactseg_tpu_torch.engine.checkpoint import (
     load_checkpoint,
     merge_pretrained,
+    optimizer_state,
     save_checkpoint,
 )
 from mulactseg_tpu_torch.engine.evaluate import Evaluator
 from mulactseg_tpu_torch.engine.state import make_optimizer
 from mulactseg_tpu_torch.engine.train import (
     CRITERIA,
+    PENDING,
     make_eval_step,
     make_train_step,
 )
@@ -80,7 +82,8 @@ class ALTrainer:
         self.train_step = (make_train_step(
             self.model, cfg, self.dev,
             generator=torch.Generator(self.dev).manual_seed(cfg.seed),
-            optimizer=self.optimizer) if cfg.method in CRITERIA else None)
+            optimizer=self.optimizer)
+            if cfg.method in CRITERIA or cfg.method in PENDING else None)
         self._step = 0
         self.eval_step = make_eval_step(self.model, cfg, self.dev)
         self.evaluator = Evaluator(self.model, cfg, device=self.dev)
@@ -153,9 +156,11 @@ class ALTrainer:
                 self.model.state_dict(), weights))
         else:
             self.model.load_state_dict(weights)
-            if load_optim and payload.get("optimizer_state_dict"):
-                self._load_optimizer(payload["optimizer_state_dict"])
-                self.step = payload["step"]
+            opt_state = optimizer_state(payload)
+            if load_optim and opt_state:
+                self._load_optimizer(opt_state)
+                # the reference's files hold no step count
+                self.step = payload.get("step", self.step)
         self.loaded = True
 
     # -- training -------------------------------------------------------------

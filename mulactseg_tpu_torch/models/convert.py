@@ -6,7 +6,12 @@ weights, BN weight/bias/running_mean/running_var); `state_dict_to_variables`
 is its inverse. Port names are the reference torch names that
 mulactseg_tpu/models/torch_import.py:8-23 already reads; the separable
 head convolutions use the reference's AtrousSeparableConvolution names
-(`<conv>.body.0` depthwise, `<conv>.body.1` pointwise).
+(`<conv>.body.0` depthwise, `<conv>.body.1` pointwise). The DeepLabV3
+head shares the V3+ head's names. MobileNetV2, the DeepLabV2 head and the
+auxiliary head have names after the reference modules
+(backbone/mobilenetv2.py's features split into low_level_features and
+high_level_features as modeling.py:56-63 splits them; deeplabv2.py's
+conv2d_list), which torch_import does not map.
 
 Every leaf must map exactly once: an unknown or duplicate name raises, and
 `load_variables` loads strictly, so a leaf left over or missing raises too.
@@ -40,7 +45,25 @@ _MODULES = [
     ("classifier.aspp.convs.4.1", "classifier/aspp/pool_conv", "conv"),
     ("classifier.aspp.convs.4.2", "classifier/aspp/pool_bn", "bn"),
     ("classifier.final", "classifier/final", "conv"),
+    ("classifier.conv2d_list.{K}", "classifier/branch{K}", "conv"),
+    ("aux_classifier.classifier", "aux_classifier/classifier", "conv"),
+    ("backbone.low_level_features.0.0", "backbone/stem", "conv"),
+    ("backbone.low_level_features.0.1", "backbone/stem_bn", "bn"),
 ]
+# MobileNetV2's blocks: block b is features[b + 1] (low_level_features
+# 1-3, then high_level_features 0-13); its Sequential `conv` holds the
+# expansion (absent in block 0, t = 1), the depthwise block and the
+# projection
+for _b in range(17):
+    _port = (f"backbone.low_level_features.{_b + 1}.conv" if _b < 3
+             else f"backbone.high_level_features.{_b - 3}.conv")
+    _parts = ((("expand", "conv"), ("expand_bn", "bn")) if _b else ())
+    _parts += (("depthwise", "conv"), ("dw_bn", "bn"))
+    _names = [f"{i // 2}.{i % 2}" for i in range(len(_parts))]
+    _names += [str(len(_parts) // 2), str(len(_parts) // 2 + 1)]
+    _parts += (("project", "conv"), ("project_bn", "bn"))
+    _MODULES += [(f"{_port}.{n}", f"backbone/block{_b}/{f}", k)
+                 for n, (f, k) in zip(_names, _parts)]
 for _port, _flax in (("classifier.project", "classifier/project"),
                      ("classifier.aspp.convs.{K}", "classifier/aspp/b{K}"),
                      ("classifier.aspp.project", "classifier/aspp/project"),

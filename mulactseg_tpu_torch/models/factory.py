@@ -1,6 +1,7 @@
 """Model factory, the port of mulactseg_tpu/models/factory.py: OS8 dilates
 layers 3+4 with ASPP rates (12, 24, 36); OS16 dilates layer 4 with
-(6, 12, 18)."""
+(6, 12, 18). MobileNetV2 takes the same rates (factory.py:49-53);
+separable convolutions apply to the V3+ heads only."""
 
 from __future__ import annotations
 
@@ -11,8 +12,14 @@ import torch.nn as nn
 
 from mulactseg_tpu_torch.device import resolve_device
 from mulactseg_tpu_torch.models import resnet as _resnet
-from mulactseg_tpu_torch.models.deeplab import DeepLabHeadV3Plus, DeepLabV3
+from mulactseg_tpu_torch.models.deeplab import (
+    DeepLabHeadV2,
+    DeepLabHeadV3,
+    DeepLabHeadV3Plus,
+    DeepLabV3,
+)
 from mulactseg_tpu_torch.models.layers import Conv2d, kaiming_std
+from mulactseg_tpu_torch.models.mobilenet import mobilenet_v2
 
 MODEL_NAMES = (
     "deeplabv3_resnet50", "deeplabv3plus_resnet50", "deeplabv3plusc1_resnet50",
@@ -51,24 +58,28 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def get_model(model: str, num_classes: int, output_stride: int = 16,
               separable_conv: bool = False, device="cuda",
               generator: Optional[torch.Generator] = None) -> DeepLabV3:
-    """Build a DeepLabV3+ over a ResNet backbone on `device` with weights
-    drawn from `generator` (a CPU torch.Generator; seed 0 when None).
-    Parameters are float32; logits come back float32 NCHW."""
+    """Build one of MODEL_NAMES on `device` with weights drawn from
+    `generator` (a CPU torch.Generator; seed 0 when None). Parameters are
+    float32; logits come back float32 NCHW."""
     if model not in MODEL_NAMES:
         raise ValueError(f"unknown model {model!r}")
     arch, backbone_name = model.split("_", 1)
-    if arch not in _HEAD_VARIANT or backbone_name == "mobilenet":
-        raise NotImplementedError(
-            f"{model!r} is not ported yet: the port covers the DeepLabV3+ "
-            "ResNet models; the rest of the zoo is ROADMAP.md queue A, "
-            "item 16")
     dev = resolve_device(device)
     rswd, aspp = _dilation_cfg(output_stride)
-    backbone = getattr(_resnet, backbone_name)(
-        replace_stride_with_dilation=rswd)
-    head = DeepLabHeadV3Plus(2048, 256, num_classes, aspp,
-                             variant=_HEAD_VARIANT[arch],
-                             separable=separable_conv)
+    if backbone_name == "mobilenet":
+        backbone, cin, low = mobilenet_v2(output_stride), 320, 24
+    else:
+        backbone = getattr(_resnet, backbone_name)(
+            replace_stride_with_dilation=rswd)
+        cin, low = 2048, 256
+    if arch in _HEAD_VARIANT:
+        head = DeepLabHeadV3Plus(cin, low, num_classes, aspp,
+                                 variant=_HEAD_VARIANT[arch],
+                                 separable=separable_conv)
+    elif arch == "deeplabv3":
+        head = DeepLabHeadV3(cin, num_classes, aspp)
+    else:
+        head = DeepLabHeadV2(cin, num_classes)
     net = DeepLabV3(backbone, head)
     if generator is None:
         generator = torch.Generator().manual_seed(0)

@@ -40,6 +40,17 @@ scoring functions and the paper's selector are held against the CPU
 (top-1 ids, votes and selected regions exactly, scores within 1e-5, as
 the card's atomics add the segment sums in another order), and a
 checkpoint of a model and AdamW state on the card loads back bitwise.
+The criteria's group term runs K5 once an image on the softmax planes.
+On N(0, 0.2^2) and on saturating N(0, 1) logits the card and the CPU
+each lie within float32's own rounding of a float64 run
+(chip_smoke.group_term_float64: the loss within 8 * 2^-24 * (1 + loss),
+each gradient entry within 8 rounding units of its operands) outside
+segments with a near-tie (chip_smoke.near_tie_pixels, 1e-6); on the
+N(0, 0.2^2) logits also the card against the CPU as the CPU tests hold
+the port against JAX (loss within rtol 1e-5, gradient within 1e-5 of
+its largest entry). A needs_feat step (pwce, wgroup) on a small float32
+model with TF32 off gives the CPU's loss parts within rtol 1e-5 and
+launches K5 once (pwce) or twice (wgroup) an image.
 """
 
 import numpy as np
@@ -816,3 +827,112 @@ def test_process_loader_at_recipe_size(dev, tmp_path):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
         on_card = torch.as_tensor(got[k]).to(dev)
         assert torch.equal(on_card.cpu(), torch.as_tensor(want[k])), k
+
+
+def _region_batch(rng, B, H, W, nseg, C):
+    spx = np.stack([irregular_superpixels(H, W, nseg, rng)
+                    for _ in range(B)]).astype(np.int32)
+    target = np.zeros((B, nseg, C), np.float32)
+    for b in range(B):
+        for s in range(nseg):
+            n = rng.choice([0, 1, 2, 3], p=[0.15, 0.45, 0.25, 0.15])
+            target[b, s, rng.choice(C, n, replace=False)] = 1.0
+    spmask = np.take_along_axis(rng.rand(B, nseg) < 0.6, spx.reshape(B, -1),
+                                1).reshape(B, H, W)
+    return {"target": target, "spx": spx, "spmask": spmask}
+
+
+@pytest.mark.parametrize("H,W,only_multi,scale", [
+    (48, 40, False, 0.2), (37, 29, True, 0.2),
+    (48, 40, False, 1.0), (37, 29, True, 1.0)])
+def test_group_term_through_k5_matches_cpu(dev, H, W, only_multi, scale):
+    from chip_smoke import group_term_float64, near_tie_pixels
+    from mulactseg_tpu_torch.losses.partial import group_multi_label_ce
+
+    rng = np.random.RandomState(H)
+    B, C, nseg = 2, 7, 20
+    batch = _region_batch(rng, B, H, W, nseg, C)
+    logits = (rng.randn(B, C, H, W) * scale).astype(np.float32)
+    args = [batch[k] for k in ("target", "spx", "spmask")]
+    out = []
+    _build.reset_launches()
+    for d in ("cpu", dev):
+        x = torch.from_numpy(logits).to(d).requires_grad_(True)
+        loss = group_multi_label_ce(
+            x, *(torch.from_numpy(a).to(d) for a in args),
+            nseg=nseg, temp=0.1, slice_last=False, only_multi=only_multi)
+        loss.backward()
+        out.append((float(loss.detach()), x.grad.cpu().double()))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"seg_max_fwd": B}
+    l64, g64, unit = group_term_float64(logits, *args, nseg, temp=0.1,
+                                        only_multi=only_multi)
+    mask = batch["spmask"].reshape(B, -1)
+    if only_multi:
+        multi = batch["target"].sum(-1) > 1
+        mask = mask & np.take_along_axis(multi, batch["spx"].reshape(B, -1),
+                                         1)
+    sid = np.where(mask, batch["spx"].reshape(B, -1), nseg)
+    probs = torch.softmax(torch.from_numpy(logits).reshape(B, C, -1) / 0.1,
+                          dim=1)
+    ties = near_tie_pixels(probs, sid, nseg).reshape(B, 1, H, W)
+    (ref, gref), (got, ggot) = out
+    assert l64 > 0
+    for lv, g in out:  # card and CPU each within float32's own rounding
+        assert abs(lv - l64) <= 8 * 2.0 ** -24 * (1 + l64)
+        assert bool((torch.where(ties, 0.0, (g - g64).abs())
+                     <= 8 * unit).all())
+    if scale < 1.0:  # unsaturated: card against CPU as the CPU tests
+        assert got == pytest.approx(ref, rel=1e-5)
+        bad = (ggot - gref).abs() > 1e-5 * gref.abs().max()
+        assert not bool((bad & ~ties).any())
+
+
+class _Tiny(torch.nn.Module):
+    """3x3 conv, BN, ReLU and a biased 1x1 head; return_feat hands out
+    the ReLU output."""
+
+    def __init__(self, c):
+        super().__init__()
+        from mulactseg_tpu_torch.models.layers import Conv2d, FastBatchNorm
+
+        self.conv = Conv2d(3, 16, 3)
+        self.bn = FastBatchNorm(16)
+        self.final = Conv2d(16, c, 1, bias=True)
+
+    def forward(self, x, return_feat=False):
+        y = torch.relu(self.bn(self.conv(x)))
+        return (y, self.final(y)) if return_feat else self.final(y)
+
+
+@pytest.mark.parametrize("method,k5", [
+    ("active_pwce_multi_predignore", 1),
+    ("active_joint_multi_predignore_wgroup", 2)])
+def test_needs_feat_step_on_card_matches_cpu(dev, method, k5, monkeypatch):
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.engine.train import make_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    rng = np.random.RandomState(4)
+    B, C, H, W, nseg = 2, 7, 40, 48, 16
+    batch = _region_batch(rng, B, H, W, nseg, C)
+    batch["images"] = rng.randn(B, 3, H, W).astype(np.float32)
+    cfg = Config(num_classes=C - 1, nseg=nseg, method=method,
+                 dtype="float32", finetune_itrs=10)
+    torch.manual_seed(0)
+    model = _Tiny(C)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.3)
+    auxes = []
+    for d in ("cpu", dev):
+        m = _Tiny(C).to(d)
+        m.load_state_dict(model.state_dict())
+        _build.reset_launches()
+        auxes.append({k: float(v) for k, v in make_train_step(
+            m, cfg, device=d)(batch).items()})
+        if d != "cpu":
+            torch.cuda.synchronize()
+            assert dict(_build.LAUNCHES) == {"seg_max_fwd": k5 * B}
+    for k, v in auxes[0].items():
+        assert v > 0 and auxes[1][k] == pytest.approx(v, rel=1e-5), k

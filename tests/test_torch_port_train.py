@@ -214,11 +214,30 @@ def test_optimizer_matches_optax_on_shared_gradients():
 
 
 def test_criteria_registry():
-    assert list(CRITERIA) == ["active_joint_multi_predignore_lossdecomp",
-                              "active_joint_multi_lossdecomp",
-                              "active_predignore", "active"]
+    assert list(CRITERIA) == [
+        "active_joint_multi_predignore_lossdecomp",
+        "active_joint_multi_lossdecomp",
+        "active_joint_multi_predignore", "active_joint_multi",
+        "active_joint_multi_predignore_mclossablation2",
+        "active_predignore", "active",
+        "active_joint_multi_predignore_precise",
+        "active_joint_multi_predignore_multice_precise",
+        "active_joint_multi_predignore_multient",
+        "active_joint_multi_predignore_exclusivece",
+        "active_joint_multi_lossdecomp_rc",
+        "active_joint_multi_lossdecomp_topone",
+        "active_pwce_multi_predignore",
+        "active_joint_multi_predignore_top1plbl",
+        "active_joint_multi_predignore_mclossablation",
+        "active_joint_multi_predignore_lscale",
+        "active_joint_multi_predignore_wgroup",
+        "active_joint_multi_ablation",
+        "active_joint_multi_predignore_sequence",
+        "active_joint_multi_predignore_logprecision"]
     with pytest.raises(KeyError, match="available"):
-        get_criterion(Config(method="active_joint_multi"))
+        get_criterion(Config(method="active_joint_multi_nonexistent"))
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        get_criterion(Config(method="active_joint_hier_multi"))
 
 
 def test_synthetic_and_bit_packer_copies_match_jax():
