@@ -75,19 +75,28 @@
    counted: K1-K4 once a step, finite losses. Per model: parameters,
    step ms, img/s, peak GiB.
 8.2. The criteria beside the recipe's (criteria), on the recipe model at
-   the same shape from the seeded weights each time: first K5 at the
-   group term's instance, one image's softmax planes at T = 0.1 under the
-   ids of its selected superpixels (about half), held bitwise against its
-   plain version and timed; then every criterion of CRITERIA_CASES (the
-   joint criterion for 3 + 20 steps, the others and the unfused
-   lossdecomp, a batch without target bits, for 1 + 5), and the joint
-   criterion once more with SGD and the constant schedule, each with
-   every launch counter set to 0 just before and read just after: K5 once
-   an image and step for a group term (twice for wgroup, never for
-   multice_precise), K1-K4 never, finite losses. Then every criterion on
-   the card against the CPU at 96x80, nseg 24 (small_criteria_check), and
-   the group term on N(0, 1) logits, which saturate the softmax, on the
-   card and on the CPU against a float64 run (saturated_group_check).
+   the same shape from the seeded weights each time, on batches that also
+   carry what the last ten criteria read (more_regions): a finer map of
+   SMALL_NSEG superpixels, each image's weak view uncut at 1024x2048 with
+   its maps, and the mixed-scale levels MSEG_LEVELS. First K5 held
+   bitwise against its plain version and timed at three instances
+   (k5_instances): the group term's, one image's softmax planes at T =
+   0.1 under the ids of its selected superpixels (about half); and the
+   two only the async hierarchy criteria reach, the weak view's planes
+   under its 2,048 superpixels' ids and under the fine map's 8,192. Then
+   the online criteria's prototype candidates per image and how many the
+   256-slot cap drops (prototype_counts). Then every criterion of
+   CRITERIA_CASES and MORE_CRITERIA_CASES (the joint criterion for 3 + 20 steps, the others and
+   the unfused lossdecomp, a batch without target bits, for 1 + 5; the
+   online family with dorampup on for one), and the joint criterion once
+   more with SGD and the constant schedule, each with every launch
+   counter set to 0 just before and read just after: K5 once an image
+   and step for a group term (twice for wgroup, the _domc pair and
+   async_weight, once per level for mseg, never for multice_precise),
+   K1-K4 never, finite losses. Then every criterion of CRITERIA_CASES on
+   the card against the CPU at 96x80, nseg 24 (small_criteria_check), and the group term
+   on N(0, 1) logits, which saturate the softmax, on the card and on the
+   CPU against a float64 run (saturated_group_check).
 8a. The active-learning main path, from a file of the seeded weights
    named like the recipe's ImageNet init (so the final classifier is
    stripped): run_al_rounds for 2 rounds on a SyntheticRegionDataset at
@@ -136,6 +145,33 @@
    train img/s (whole, first epoch with cold decode caches, the rest
    warm, validations taken out), plbl img/s, stage-2 img/s and mIoU,
    loader files/s, item ms by part, launches, peak GiB.
+8d. The loader arms (loader_arms): a Cityscapes-format tree as in 8b
+   (LA_TRAIN training and LA_VAL validation images at 1024x2048) that
+   also holds superpixel maps at 512, 1,024 and 8,192 with their
+   datalists, region dicts and multi-hot tensors, and the dominant labels
+   of tools/label_assignment's dominant mode; the recipe's stage-1 command
+   cut to 1 round of LA_ITRS steps and run through train_al.main for the
+   dominant arm (--or_labeling false, RegionDatasetDominant with
+   predignore, plain CE), the async hierarchy arm
+   (region_cityscapes_or_tensor_ignore_async,
+   active_joint_hier_multi_async_weight: every item carries its
+   1024x2048 weak view, checked) and a research rewrite
+   (region_cityscapes_or_tensor_ratiosample_gt); then the mixed-scale
+   arm as its loaders, MsegRegionActiveSet.expand_training_set with given
+   rows over two or three levels an image, and LA_ITRS steps. Every
+   launch counter is set to 0 just before each arm and read just after:
+   nothing for the dominant arm, K5 twice an image and step for the async
+   arm and once an image, level and step for mseg (as in 8.2), K1-K4 once
+   a step for the rewrite. The async and mixed-scale arms gather NaN
+   target rows at padded pixels, as the JAX package does (ROADMAP.md,
+   open question 4), so their weights go NaN after the first step whose
+   batch holds crop padding: each arm's losses must be finite up to that
+   step, and at least one step must be finite and free of padding. Its
+   line: per arm seconds, train img/s, loader items/s over the round's
+   labelled set, the losses and each batch's padded pixels, finite_steps
+   (how many losses were finite), weights_finite (after training), and
+   eval mIoU, null where the weights went NaN (eval_miou_nan_weights then
+   holds what the NaN model scored); launches.
 8c. The VOC recipe's commands over files (voc_recipe): a VOC-format tree
    written by tools/voc_tree.py (VOC_TRAIN training and VOC_VAL validation
    images at VOC's sizes, 375x500 to 500x500: baseline 4:2:0 JPEGs,
@@ -184,14 +220,14 @@
 
 Prints, at the end and in compact JSON so that the last 24 kB of the
 output hold them all, the slices' numbers (the zoo and criteria lines,
-items 8.1-8.2; the cli_recipe line, item 8b; the voc_recipe line, item
-8c; evaluation; stage 1 at both nseg; plbl; the al_rounds line:
+items 8.1-8.2; the cli_recipe line, item 8b; the loader_arms line, item
+8d; the voc_recipe line, item 8c; evaluation; stage 1 at both nseg; plbl; the al_rounds line:
 per round the selection seconds, train img/s, validations, eval mIoU,
 checkpoint save and load seconds; then plbl img/s, stage-2 img/s and mIoU,
 peak memory and the card), the card's name and power limit, and one JSON
-line with each kernel's check and times (K5 four times: at plbl's
-shapes, on K6's planes, on a VOC plbl image and at the group term's
-instance; K1-K4 twice: at Cityscapes' and VOC's stage-1 shapes), its
+line with each kernel's check and times (K5 six times: at plbl's
+shapes, on K6's planes, on a VOC plbl image, at the group term's
+instance, on the async weak view and over its fine map; K1-K4 twice: at Cityscapes' and VOC's stage-1 shapes), its
 launches on each main path (launches_by_path) and
 their sum (launches); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -251,6 +287,14 @@ ZOO_WARMUP, ZOO_TIMED, ZOO_EVAL_HW, ZOO_EVAL_RTOL = 1, 5, (96, 80), 1e-4
 # the criteria beside the recipe's, at the stage-1 shape: CRIT_WARMUP +
 # CRIT_TIMED steps each (the joint criterion as many as stage 1)
 CRIT_WARMUP, CRIT_TIMED = 1, 5
+# the criteria that read more than a region batch: the hierarchy's finer
+# map of SMALL_NSEG superpixels (4x finer), the async criteria's weak view
+# of each image uncut at WEAK_HW, the mixed-scale levels MSEG_LEVELS
+SMALL_NSEG, WEAK_HW, MSEG_LEVELS = 8192, (1024, 2048), (512, 1024, 2048)
+# the loader arms over files: a generated tree of LA_TRAIN training and
+# LA_VAL validation images at PHxPW with the extra granularities and the
+# dominant labels; each arm cut to 1 round of LA_ITRS steps
+LA_TRAIN, LA_VAL, LA_ITRS = 8, 2, 6
 TIMING_RUNS, REPEATS = 20, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -1230,7 +1274,25 @@ CRITERIA_CASES = (
     ("lossdecomp_unfused", "active_joint_multi_predignore_lossdecomp", {},
      1),
 )
-SLICED = ("active_joint_multi", "active_joint_multi_ablation")
+# the criteria that read more than a region batch (more_regions' keys)
+MORE_CRITERIA_CASES = (
+    ("onlineplbl", "active_onlineplbl_multi_predignore", {"dorampup": True},
+     1),
+    ("onlinewplbl", "active_onlinewplbl_multi_predignore", {}, 1),
+    ("onlinesimwplbl", "active_onlinesimwplbl_multi_predignore", {}, 1),
+    ("onlinewplblonly", "active_onlinewplblonly_multi_predignore", {}, 1),
+    ("onlineplbl_domc", "active_onlineplbl_multi_predignore_domc", {}, 2),
+    ("onlinesimwplbl_domc", "active_onlinesimwplbl_multi_predignore_domc", {},
+     2),
+    ("hier", "active_joint_hier_multi", {}, 1),
+    ("hier_async", "active_joint_hier_multi_async", {}, 1),
+    ("hier_async_weight", "active_joint_hier_multi_async_weight", {}, 2),
+    ("mseg", "active_joint_multi_predignore_mseg",
+     {"nseg_list": MSEG_LEVELS}, len(MSEG_LEVELS)),
+)
+SLICED = ("active_joint_multi", "active_joint_multi_ablation",
+          "active_joint_hier_multi", "active_joint_hier_multi_async",
+          "active_joint_hier_multi_async_weight")
 
 
 def criteria_batch(batch, method, case):
@@ -1261,96 +1323,221 @@ def with_regions(batches, seed):
     return out
 
 
-def criteria_slice(model, variables, dev, smi, batches):
-    """Every criterion beside the recipe's (CRITERIA_CASES) on the recipe
-    model at the stage-1 shape, from the seeded weights each time: K5 held
-    and timed at the group term's instance first, then each criterion's
-    steps with every launch counter set to 0 just before and read just
-    after (K5 its count per image and step, K1-K4 never), SGD with the
-    constant schedule once. Returns (the criteria line, launches, K5's
-    kernels-line row)."""
-    from mulactseg_tpu_torch.config import Config
-    from mulactseg_tpu_torch.engine.train import _device_normalize
-    from mulactseg_tpu_torch.engine.train import make_train_step
-    from mulactseg_tpu_torch.models import convert
-    from mulactseg_tpu_torch.ops import _build, segment_max
+def more_regions(batches, seed):
+    """with_regions' batches with what the criteria of
+    MORE_CRITERIA_CASES read: spx_small, the finer map (SMALL_NSEG
+    irregular superpixels); the weak view of each image uncut at WEAK_HW (uint8 images_weak, its own
+    spx_weak and spx_small_weak maps, spmask_weak over the superpixels the
+    strong view selects); and the mixed-scale levels MSEG_LEVELS stacked
+    (mseg_spx, mseg_spmask, mseg_target_<i>: the batch's own at nseg NSEG,
+    50% selected and 15% candidates at the coarser levels)."""
+    from mulactseg_tpu_torch.data.synthetic import irregular_superpixels
 
-    batches = with_regions(batches, 13)
-    # K5 at the group term's instance: one image's softmax planes at
-    # T = 0.1 under the ids of its selected superpixels
+    rng = np.random.RandomState(seed)
+    maps = lambda h, w, n: np.stack([irregular_superpixels(h, w, n, rng)
+                                     for _ in range(B)]).astype(np.int32)
+    out = []
+    for b in batches:
+        sel = np.zeros((B, NSEG + 1), bool)
+        for i in range(B):
+            sel[i, np.unique(b["spx"][i][b["spmask"][i]])] = True
+        spx_weak = maps(*WEAK_HW, NSEG)
+        extra = {"spx_small": maps(H, W, SMALL_NSEG),
+                 "images_weak": rng.randint(0, 256, (B, 3) + WEAK_HW).astype(
+                     np.uint8),
+                 "spx_weak": spx_weak,
+                 "spmask_weak": np.take_along_axis(
+                     sel, spx_weak.reshape(B, -1), 1).reshape(B, *WEAK_HW),
+                 "spx_small_weak": maps(*WEAK_HW, SMALL_NSEG)}
+        spx_levels, mask_levels = [], []
+        for i, n in enumerate(MSEG_LEVELS):
+            if n == NSEG:
+                spx, mask, target = b["spx"], b["spmask"], b["target"]
+            else:
+                spx = maps(H, W, n)
+                mask = np.take_along_axis(rng.rand(B, n) < 0.5,
+                                          spx.reshape(B, -1),
+                                          1).reshape(B, H, W)
+                target = (rng.rand(B, n, NUM_CLASSES) < 0.15).astype(
+                    np.float32)
+            spx_levels.append(spx)
+            mask_levels.append(mask)
+            extra[f"mseg_target_{i}"] = target
+        extra["mseg_spx"] = np.stack(spx_levels, axis=1)
+        extra["mseg_spmask"] = np.stack(mask_levels, axis=1)
+        out.append({**b, **extra})
+    return out
+
+
+def k5_instances(model, variables, dev, b0):
+    """K5 held bitwise against its plain version and timed at the three
+    instances of the criteria phase, on the first batch from the seeded
+    weights: the group term's (one image's softmax planes at T = 0.1 under
+    the ids of its selected superpixels, about half); the async
+    criteria's weak view (one uncut 1024x2048 image's planes under its
+    2,048 superpixels' ids) and the weight's max over its fine map (the
+    same planes under SMALL_NSEG ids), which no other path runs. Returns
+    their kernels-line rows."""
+    from mulactseg_tpu_torch.engine.train import _device_normalize
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.ops import segment_max
+
+    def row(label, planes, ids, mask, nseg):
+        sid = torch.from_numpy(np.where(mask, ids, nseg).astype(
+            np.int32)).to(dev)
+        err = check_k5(planes, sid, label.partition("@")[2], nseg)
+        P, C = planes.shape
+        n_valid = int((sid < nseg).sum())
+        out = (label, err,
+               time_ms(lambda: segment_max.seg_max_fwd(planes, sid, nseg),
+                       graph=True),
+               time_ms(lambda: segment_max.segment_max_plain(planes, sid,
+                                                             nseg)),
+               bound(P * 4 + n_valid * C * 4 + nseg * C * 8, n_valid * C),
+               None)
+        print(f"K5 at {label.partition('@')[2]} bitwise equal to its plain "
+              f"version; {n_valid} of {P} pixels valid; {out[2]:.4f} ms "
+              f"(bound {out[4][0]:.4f})", flush=True)
+        return out
+
+    C = NUM_CLASSES
     convert.load_variables(model, variables)
     with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
         logits = model(_device_normalize(
-            torch.as_tensor(batches[0]["images"]).to(dev)))
-    C, P = NUM_CLASSES, H * W
-    probs = torch.softmax(logits.float().reshape(B, C, P) / 0.1, dim=1)
+            torch.as_tensor(b0["images"]).to(dev)))
+    planes = torch.softmax(logits[0].float().reshape(C, H * W) / 0.1,
+                           dim=0).t()
     del logits
-    planes = probs[0].t()
     check(segment_max.layout(planes) == segment_max.PLANES,
           "the group term's planes do not take K5's PLANES path")
-    spx0 = batches[0]["spx"][0].reshape(-1)
-    sel0 = batches[0]["spmask"][0].reshape(-1)
-    sid = torch.from_numpy(np.where(sel0, spx0, NSEG).astype(np.int32)).to(
-        dev)
-    err = check_k5(planes, sid, "group term, 768x768 image")
-    n_valid = int((sid < NSEG).sum())
-    row = ("seg_max_fwd@group term, 768x768 image", err,
-           time_ms(lambda: segment_max.seg_max_fwd(planes, sid, NSEG),
-                   graph=True),
-           time_ms(lambda: segment_max.segment_max_plain(planes, sid, NSEG)),
-           bound(P * 4 + n_valid * C * 4 + NSEG * C * 8, n_valid * C), None)
-    print(f"K5 at the group term's instance bitwise equal to its plain "
-          f"version; {n_valid} of {P} pixels valid; {row[2]:.4f} ms "
-          f"(bound {row[4][0]:.4f})", flush=True)
-    del probs, planes
+    rows = [row("seg_max_fwd@group term, 768x768 image", planes,
+                b0["spx"][0].reshape(-1), b0["spmask"][0].reshape(-1),
+                NSEG)]
+    convert.load_variables(model, variables)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        model.eval()
+        logits = model(_device_normalize(torch.as_tensor(
+            b0["images_weak"][:1]).to(dev)))
+        model.train()
+    planes = torch.softmax(logits.float().reshape(C, -1) / 0.1, dim=0).t()
+    del logits
+    check(segment_max.layout(planes) == segment_max.PLANES,
+          "the weak view's planes do not take K5's PLANES path")
+    mask_w = b0["spmask_weak"][0].reshape(-1)
+    rows += [row("seg_max_fwd@async weak view, 1024x2048", planes,
+                 b0["spx_weak"][0].reshape(-1), mask_w, NSEG),
+             row("seg_max_fwd@fine map, 8192 segments", planes,
+                 b0["spx_small_weak"][0].reshape(-1), mask_w, SMALL_NSEG)]
+    return rows
+
+
+def prototype_counts(model, dev, b0):
+    """The online criteria's (superpixel, class) prototype candidates per
+    image of the first batch, from its eval forward, and how many the
+    256-slot cap drops (it keeps the first)."""
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.engine.train import _device_normalize
+    from mulactseg_tpu_torch.losses import online
+
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        model.eval()
+        feat, plbl_logits = model(_device_normalize(torch.as_tensor(
+            b0["images"]).to(dev)), return_feat=True)
+        model.train()
+    probs = torch.softmax(plbl_logits.float().reshape(B, NUM_CLASSES, -1)
+                          / Config().group_ce_temp, dim=1)
+    candidates = [int(online.prototypes(
+        feat[i].reshape(feat.shape[1], -1).t(), probs[i].t(),
+        torch.as_tensor(b0["target"][i]).to(dev),
+        torch.as_tensor(b0["spx"][i]).to(dev),
+        torch.as_tensor(b0["spmask"][i]).to(dev), nseg=NSEG).candidates)
+        for i in range(B)]
+    protos = {"candidates": candidates,
+              "dropped_by_cap": [max(0, n - 256) for n in candidates]}
+    print(f"online prototypes per image: {protos}", flush=True)
+    return protos
+
+
+def criteria_slice(model, variables, dev, smi, batches):
+    """Every criterion beside the recipe's (CRITERIA_CASES and
+    MORE_CRITERIA_CASES) on the recipe model at the stage-1 shape, on
+    more_regions' batches (a criterion
+    moves to the card only the keys it reads), from the seeded weights
+    each time: K5 held and timed at its three instances first
+    (k5_instances), the online criteria's prototypes counted
+    (prototype_counts), then each criterion's steps with every launch
+    counter set to 0 just before and read just after (K5 its count per
+    image and step, K1-K4 never), SGD with the constant schedule once.
+    Returns (the criteria line, launches, K5's kernels-line rows)."""
+    from mulactseg_tpu_torch.models import convert
+
+    batches = more_regions(with_regions(batches, 13), 17)
+    rows = k5_instances(model, variables, dev, batches[0])
+    protos = prototype_counts(model, dev, batches[0])
 
     out, launches = {}, Counter()
-    runs = [(case, method, over, k5) for case, method, over, k5
-            in CRITERIA_CASES]
-    runs.append(("joint_predignore_sgd_constant",
-                 "active_joint_multi_predignore",
-                 {"optimizer": "sgd", "scheduler": "constant"}, 1))
+    runs = list(CRITERIA_CASES + MORE_CRITERIA_CASES) + [
+        ("joint_predignore_sgd_constant", "active_joint_multi_predignore",
+         {"optimizer": "sgd", "scheduler": "constant"}, 1)]
     for case, method, over, k5 in runs:
-        cfg = Config(num_classes=NUM_CLASSES - 1, nseg=NSEG, crop_size=(H, W),
-                     train_batch_size=B, dtype="bfloat16",
-                     separable_conv=True, method=method, **over)
         warmup, timed = ((WARMUP, TIMED) if case == "joint_predignore"
                          else (CRIT_WARMUP, CRIT_TIMED))
-        bs = [criteria_batch(b, method, case) for b in batches]
-        convert.load_variables(model, variables)
-        step = make_train_step(model, cfg, device=dev,
-                               generator=torch.Generator(dev).manual_seed(0))
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_launches()
-        losses, window_s, sizes = run_steps(step, bs, warmup, timed)
-        got = dict(_build.LAUNCHES)
-        steps = warmup + timed
-        want = {"seg_max_fwd": k5 * B * steps} if k5 else {}
-        check(got == want, f"criterion {case}: launches {got}, want {want}")
-        check(all(math.isfinite(v) for v in losses.values()),
-              f"criterion {case}: non-finite loss {losses}")
+        out[case], got, step = run_criterion(
+            model, variables, dev, case, method, over, k5, batches, warmup,
+            timed)
         if over.get("scheduler") == "constant":
+            cfg = step.cfg
             lrs = [g["lr"] for g in step.optimizer.param_groups]
             check(lrs == [cfg.train_lr, cfg.train_lr * cfg.cls_lr_scale]
                   and isinstance(step.optimizer, torch.optim.SGD),
                   f"SGD with the constant schedule: lrs {lrs}")
         launches += Counter(got)
-        dt = sum(window_s)
-        out[case] = {"method": method, "step_ms": dt / timed * 1e3,
-                     "img_per_s": B * timed / dt,
-                     "window_step_ms": [t / n * 1e3 for t, n
-                                        in zip(window_s, sizes)],
-                     "k5_per_step": got.get("seg_max_fwd", 0) / steps,
-                     "steps": steps,
-                     "peak_mem_gib": torch.cuda.max_memory_allocated()
-                     / 2 ** 30, **losses}
-        print(f"criterion {case}: {json.dumps(out[case])}", flush=True)
         del step
     convert.load_variables(model, variables)
     torch.cuda.empty_cache()
-    return {"criteria": out, "card": smi, "batch": B, "crop": [H, W],
-            "nseg": NSEG}, launches, row
+    return {"criteria": out, "online_prototypes": protos, "card": smi,
+            "batch": B, "crop": [H, W], "nseg": NSEG}, launches, rows
+
+
+def run_criterion(model, variables, dev, case, method, over, k5, batches,
+                  warmup, timed):
+    """One criterion on the recipe model from the seeded weights:
+    warmup + timed steps on criteria_batch's batches, every launch counter
+    set to 0 just before and read just after (K5 k5 times an image and
+    step, no other kernel), finite losses. Returns (its line, launches,
+    the step, with its Config as step.cfg)."""
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.engine.train import make_train_step
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.ops import _build
+
+    cfg = Config(num_classes=NUM_CLASSES - 1, nseg=NSEG, crop_size=(H, W),
+                 train_batch_size=B, dtype="bfloat16", separable_conv=True,
+                 method=method, small_nseg=SMALL_NSEG, **over)
+    bs = [criteria_batch(b, method, case) for b in batches]
+    convert.load_variables(model, variables)
+    step = make_train_step(model, cfg, device=dev,
+                           generator=torch.Generator(dev).manual_seed(0))
+    step.cfg = cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    losses, window_s, sizes = run_steps(step, bs, warmup, timed)
+    got = dict(_build.LAUNCHES)
+    steps = warmup + timed
+    want = {"seg_max_fwd": k5 * B * steps} if k5 else {}
+    check(got == want, f"criterion {case}: launches {got}, want {want}")
+    check(all(math.isfinite(v) for v in losses.values()),
+          f"criterion {case}: non-finite loss {losses}")
+    dt = sum(window_s)
+    line = {"method": method, "step_ms": dt / timed * 1e3,
+            "img_per_s": B * timed / dt,
+            "window_step_ms": [t / n * 1e3 for t, n in zip(window_s, sizes)],
+            "k5_per_step": got.get("seg_max_fwd", 0) / steps, "steps": steps,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            **losses}
+    print(f"criterion {case}: {json.dumps(line)}", flush=True)
+    return line, got, step
 
 
 def near_tie_pixels(probs, sid, nseg, rel=1e-6):
@@ -1414,8 +1601,9 @@ def group_term_float64(logits, target, spx, spmask, nseg, temp=0.1,
 
 
 def small_criteria_check(dev, h=96, w=80, nseg=24):
-    """Every criterion of CRITERIA_CASES on the card against the CPU on
-    one small input (B 2, N(0, 0.2^2) logits, which leave the T = 0.1
+    """Every criterion of CRITERIA_CASES (those that read a region batch;
+    tests/test_torch_port_cuda.py holds MORE_CRITERIA_CASES') on the card
+    against the CPU on one small input (B 2, N(0, 0.2^2) logits, which leave the T = 0.1
     softmax unsaturated: at N(0, 1) each float32 group term, the card's,
     the CPU's and JAX's, strays from float64 past 1e-5 of its largest
     gradient entry, see saturated_group_check; for the needs_feat
@@ -2180,16 +2368,22 @@ def recipe_cut(argv, workdir, dl_dir, cuts):
 
 class _Stamped:
     """A train step that synchronises after each call and stamps its end;
-    every other attribute (the step count, the optimizer) is the step's."""
+    every other attribute (the step count, the optimizer) is the step's.
+    Each batch with superpixels also has its crop padding counted (pixels
+    whose id is the pad id nseg) into `pads`, after the stamp."""
 
-    def __init__(self, fn, dev, stamps, losses):
-        self.__dict__.update(fn=fn, dev=dev, stamps=stamps, losses=losses)
+    def __init__(self, fn, dev, stamps, losses, pads, nseg):
+        self.__dict__.update(fn=fn, dev=dev, stamps=stamps, losses=losses,
+                             pads=pads, nseg=nseg)
 
     def __call__(self, batch):
         aux = self.fn(batch)
         self.losses.append(float(aux["train_loss"]))
         _sync(self.dev)
         self.stamps.append(time.perf_counter())
+        if "spx" in batch:
+            self.pads.append(int((np.asarray(batch["spx"])
+                                  >= self.nseg).sum()))
         return aux
 
     def __getattr__(self, name):
@@ -2247,7 +2441,9 @@ def run_commands(dev, commands):
     its CLI's main(argv, device=dev), with every launch counter set to 0
     just before it and read just after; each training's steps are
     stamped (a synchronise after each) with its validations, and each
-    pseudo-labelling is timed. Returns (wall s, launches, results by
+    pseudo-labelling is timed. Each training's record also counts each
+    batch's padded pixels ('pads') and says whether the weights are finite
+    after it ('weights_finite'). Returns (wall s, launches, results by
     command; the trainings' records and the pseudo-labellings' seconds in
     order; peak GiB)."""
     from mulactseg_tpu_torch.engine import rounds
@@ -2260,14 +2456,18 @@ def run_commands(dev, commands):
 
     def train(self, active_set, *a, **k):
         rec = {"stamps": [time.perf_counter()], "validations": [],
-               "losses": [], "images": len(active_set.get_trainset())}
+               "losses": [], "pads": [],
+               "images": len(active_set.get_trainset())}
         trains.append(rec)
         step = self.train_step
-        self.train_step = _Stamped(step, dev, rec["stamps"], rec["losses"])
+        self.train_step = _Stamped(step, dev, rec["stamps"], rec["losses"],
+                                   rec["pads"], self.cfg.nseg)
         try:
             rec["img_per_s"] = real_train(self, active_set, *a, **k)
         finally:
             self.train_step = step
+        rec["weights_finite"] = all(bool(torch.isfinite(p).all())
+                                    for p in self.model.parameters())
         return rec["img_per_s"]
 
     def validate(self, trainiter):
@@ -2460,6 +2660,231 @@ def cli_recipe_slice(variables, dev, smi, workdir):
                     "batch_to_card": (t7 - t6) * 1e3},
         "launches": {k: v for k, v in launches.items() if v},
         "peak_mem_gib": peak_gib}}
+    total = Counter()
+    for v in launches.values():
+        total.update(v)
+    return line, dict(total)
+
+
+def with_flags(argv, flags):
+    """argv with each flag of `flags` set to its value: the value after
+    the flag replaced, a value given to a bare flag, or the flag added."""
+    out = list(argv)
+    for flag, value in flags.items():
+        if flag not in out:
+            out += [flag, str(value)]
+            continue
+        i = out.index(flag) + 1
+        if i < len(out) and not out[i].startswith("-"):
+            out[i] = str(value)
+        else:
+            out.insert(i, str(value))
+    return out
+
+
+def _finite_steps(losses, pads, nan_after_padding):
+    """Whether the losses are finite where they must be: at every step,
+    or, for a criterion whose MC term gathers a NaN target row at a padded
+    pixel (nan_after_padding), up to the first step whose batch holds crop
+    padding. That step's gradient is NaN there, as the JAX package's is
+    (ROADMAP.md, open question 4 for the reference's owners), so every
+    later loss may be NaN. Either way at least one step must be finite
+    and free of padding, so that one step shows a finite model."""
+    first = next((i for i, n in enumerate(pads) if n), None)
+    upto = len(losses) if first is None or not nan_after_padding \
+        else first + 1
+    clean = any(math.isfinite(v) and not n for v, n in zip(losses, pads))
+    return clean and all(map(math.isfinite, losses[:upto]))
+
+
+def _arm_record(losses, pads, weights_finite, miou=None):
+    """The loader_arms line's record of an arm's steps: its losses, each
+    batch's padded pixels, how many losses were finite, whether the
+    weights were finite after the steps, and its eval mIoU (null where
+    the weights went NaN, and then under eval_miou_nan_weights)."""
+    out = {"losses": losses, "padded_pixels": pads,
+           "finite_steps": sum(map(math.isfinite, losses)),
+           "weights_finite": weights_finite}
+    if miou is not None:
+        out["eval_miou"] = miou if weights_finite else None
+        if not weights_finite:
+            out["eval_miou_nan_weights"] = miou
+    return out
+
+
+def loader_arms_slice(variables, dev, smi, workdir):
+    """The loader arms over files (docstring, item 8d): a generated tree
+    with the extra granularities and the dominant labels; the dominant,
+    async hierarchy and research-rewrite arms each through train_al.main
+    with the recipe's stage-1 flags cut to 1 round of LA_ITRS steps; the
+    mixed-scale arm as its loaders, MsegRegionActiveSet's
+    expand_training_set with given rows and LA_ITRS steps. Every launch
+    counter is set to 0 just before each arm and read just after: the
+    dominant arm (plain CE) launches nothing, the async arm K5 twice an
+    image and step, the rewrite arm (the recipe's fused criterion) K1-K4
+    once a step, the mixed-scale arm K5 once an image, level and step.
+    Returns (the loader_arms line, the path's launches)."""
+    from mulactseg_tpu_torch.cli import train_al
+    from mulactseg_tpu_torch.cli.common import build_active_datasets
+    from mulactseg_tpu_torch.config import parse_config
+    from mulactseg_tpu_torch.data.loader import DataProvider
+    from mulactseg_tpu_torch.engine.checkpoint import save_checkpoint
+    from mulactseg_tpu_torch.engine.train import make_train_step
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.models.factory import get_model
+    from mulactseg_tpu_torch.ops import _build
+    from mulactseg_tpu_torch.tools.cityscapes_tree import write_tree
+
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "data")
+    coarse = tuple(n for n in MSEG_LEVELS if n != NSEG)
+    dl_dir = write_tree(root, LA_TRAIN, LA_VAL, PH, PW, NSEG, seed=1,
+                        encoding="adaptive", processes=os.cpu_count() or 1,
+                        extra_nseg=coarse + (SMALL_NSEG,), dominant=True)
+    tree_s = time.perf_counter() - t0
+    cmds = recipe_commands("train_city_mul_res50.sh", workdir, root)
+    budget = round(LA_TRAIN * 100_000 / 2_975)
+    base = recipe_cut(cmds[0], workdir, dl_dir, {
+        "--finetune_itrs": LA_ITRS, "--val_period": LA_ITRS,
+        "--max_iterations": 1, "--active_selection_size": budget})
+    init = base[base.index("--init_checkpoint") + 1]
+    model = get_model("deeplabv3pluswn_resnet50deepstem", NUM_CLASSES, 16,
+                      separable_conv=True, device="cpu")
+    convert.load_variables(model, variables)
+    save_checkpoint(init, model)  # the seeded stand-in of the ImageNet init
+    arms = {
+        "dominant": ({"--or_labeling": "false", "--dominant_labeling": "true",
+                      "--method": "active_predignore",
+                      "--loader": "region_cityscapes_predignore",
+                      "--trg_datalist": os.path.join(
+                          dl_dir, f"train_seed{NSEG}_dominant_labels.txt")},
+                     {}),
+        "async_hier": ({"--loader": "region_cityscapes_or_tensor_ignore_async",
+                        "--method": "active_joint_hier_multi_async_weight",
+                        "--small_nseg": SMALL_NSEG},
+                       {"seg_max_fwd": 2 * B * LA_ITRS}),
+        "ratiosample": ({"--loader":
+                         "region_cityscapes_or_tensor_ratiosample_gt",
+                         "--multihot_filter_ratio": 0.1},
+                        {k: LA_ITRS for k in STAGE1_KERNELS}),
+    }
+    commands = [(name, train_al.main, with_flags(base, {
+        "-p": os.path.join(workdir, name), **flags}))
+        for name, (flags, _) in arms.items()]
+    wall, launches, results, trains, _, peak_gib = run_commands(
+        dev, commands)
+    workers = min(8, os.cpu_count() or 1)
+    out = {}
+    for (name, _, argv), rec in zip(commands, trains):
+        want = arms[name][1]
+        check(launches[name] == want,
+              f"loader arm {name}: launches {launches[name]}, want {want}")
+        finite = _finite_steps(rec["losses"], rec["pads"],
+                               name == "async_hier")
+        check(len(rec["losses"]) == LA_ITRS and finite
+              and all(map(math.isfinite, results[name].values())),
+              f"loader arm {name}: losses {rec['losses']} (padded pixels "
+              f"{rec['pads']}), mIoU {results[name]}")
+        # the loader alone over the round's labelled set, its workers warm
+        cfg = parse_config(argv)
+        label = build_active_datasets(cfg)[0].trg_label_dataset
+        with open(os.path.join(cfg.model_save_dir, "datalist_01.json")) as f:
+            saved = json.load(f)
+        label.im_idx = saved["trg_label_im_idx"]
+        label.suppix = saved["trg_label_suppix"]
+        item = label[0]
+        if name == "async_hier":
+            check(item["images_weak"].shape == (3,) + WEAK_HW
+                  and item["spx_small_weak"].shape == WEAK_HW
+                  and item["spx_small"].shape == (H, W),
+                  "the async arm's weak view is not 1024x2048: "
+                  f"{item['images_weak'].shape}")
+        out[name] = {"method": cfg.method, "loader": cfg.loader,
+                     "command_s": wall[name], "train_img_per_s":
+                     rec["img_per_s"], "labelled_images": len(label),
+                     "loader_items_per_s": _loader_rate(label, True, workers),
+                     "k5_per_step": launches[name].get("seg_max_fwd", 0)
+                     / LA_ITRS, **_arm_record(
+                         rec["losses"], rec["pads"], rec["weights_finite"],
+                         results[name][1])}
+        print(f"loader arm {name}: {json.dumps(out[name])}", flush=True)
+
+    # the mixed-scale arm: its loaders, selection rows given, LA_ITRS steps
+    t1 = time.perf_counter()
+    cfg = parse_config(with_flags(base, {
+        "-p": os.path.join(workdir, "mseg"),
+        "--loader": "mseg_region_cityscapes_or_tensor",
+        "--method": "active_joint_multi_predignore_mseg",
+        "--region_dict": os.path.join(dl_dir, f"train_seed{NSEG}.dict")})
+        + ["--nseg_list"] + [str(n) for n in MSEG_LEVELS])
+    active, _ = build_active_datasets(cfg)
+    active.lbl_tpl = "gtFine/train/synth/{1}_gtFine_labelIds.png"
+    active.spx_tpl = "superpixels/seeds_{}/train/synth/{}.pkl"
+    pool = active.trg_pool_dataset
+    rng = np.random.RandomState(3)
+    rows = []
+    for img, levels in pool.im_idx:
+        fid = os.path.basename(img)[:-len("_leftImg8bit.png")]
+        for n in MSEG_LEVELS[rng.randint(0, 2):]:  # 2 or 3 levels
+            ids = rng.choice(pool.suppix[levels[str(n)][1]], n // 4,
+                             replace=False)
+            rows += [(1.0, f"{n}/{fid}", int(i)) for i in ids]
+    active.expand_training_set(rows, len(rows), "given")
+    active.dump_datalist()
+    label = active.get_trainset()
+    check(len(label) == LA_TRAIN and all(len(e[1]) >= 2
+                                         for e in label.im_idx),
+          "the mixed-scale selection left an image without two levels")
+    model = get_model(cfg.model, cfg.num_model_classes, cfg.output_stride,
+                      separable_conv=True, device=dev)
+    convert.load_variables(model, variables)
+    step = make_train_step(model, cfg, device=dev,
+                           generator=torch.Generator(dev).manual_seed(0))
+    loader = DataProvider(label, B, num_workers=workers, seed=cfg.seed)
+    setup_s = time.perf_counter() - t1
+    _sync(dev)
+    _build.reset_launches()
+    t2 = time.perf_counter()
+    losses, fed = [], []
+    for _ in range(LA_ITRS):
+        fed.append(next(loader))
+        losses.append(float(step(fed[-1])["train_loss"]))
+    _sync(dev)
+    mseg_s = time.perf_counter() - t2
+    loader.close()
+    # each level's crop padding carries that level's nseg
+    pads = [int(sum((b["mseg_spx"][:, i] >= n).sum()
+                    for i, n in enumerate(MSEG_LEVELS))) for b in fed]
+    del fed
+    launches["mseg"] = dict(_build.LAUNCHES)
+    want = {"seg_max_fwd": len(MSEG_LEVELS) * B * LA_ITRS}
+    check(launches["mseg"] == want,
+          f"loader arm mseg: launches {launches['mseg']}, want {want}")
+    check(_finite_steps(losses, pads, True),
+          f"mseg losses {losses} (padded pixels {pads})")
+    out["mseg"] = {"method": cfg.method, "loader": cfg.loader,
+                   "setup_s": setup_s, "steps_s": mseg_s,
+                   "train_img_per_s": B * LA_ITRS / mseg_s,
+                   "labelled_images": len(label), "selected_rows": len(rows),
+                   "loader_items_per_s": _loader_rate(label, True, workers),
+                   "k5_per_step": want["seg_max_fwd"] / LA_ITRS,
+                   **_arm_record(losses, pads, all(
+                       bool(torch.isfinite(p).all())
+                       for p in model.parameters()))}
+    print(f"loader arm mseg: {json.dumps(out['mseg'])}", flush=True)
+    del step, model
+    torch.cuda.empty_cache()
+    line = {"loader_arms": {
+        "card": smi, "config": f"deeplabv3pluswn_resnet50deepstem "
+        f"separable, bf16, batch {B}, crop {H}x{W}, nseg {NSEG}, the "
+        f"recipe's flags; tree: {LA_TRAIN} train and {LA_VAL} val images "
+        f"at {PH}x{PW}, superpixels at {coarse + (NSEG, SMALL_NSEG)}, "
+        "dominant labels",
+        "cuts": {"finetune_itrs": LA_ITRS, "max_iterations": 1,
+                 "active_selection_size": budget,
+                 "init": "seeded stand-in of the ImageNet init"},
+        "tree_s": tree_s, "arms": out, "peak_mem_gib": peak_gib,
+        "launches": {k: v for k, v in launches.items() if v}}}
     total = Counter()
     for v in launches.values():
         total.update(v)
@@ -2852,7 +3277,7 @@ def main():
     # the stage-1 shape; before the first profiler pass too
     torch.cuda.empty_cache()
     zoo_line, zoo_launches = zoo_slice(dev, smi, batches)
-    crit_line, crit_launches, crit_row = criteria_slice(
+    crit_line, crit_launches, crit_rows = criteria_slice(
         model, variables, dev, smi, batches)
     crit_line["small_check_tie_entries"] = small_criteria_check(dev)
     crit_line["saturated_group_vs_float64"] = saturated_group_check(dev)
@@ -2869,6 +3294,11 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         cli_line, cli_launches = cli_recipe_slice(variables, dev, smi, tmp)
+    # the loader arms over a tree with more granularities and dominant
+    # labels
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        arms_line, arms_launches = loader_arms_slice(variables, dev, smi, tmp)
     shutdown_workers()  # the loader's worker processes
     # the VOC recipe's commands over a VOC-format tree, its kernel
     # instances held first
@@ -2893,14 +3323,14 @@ def main():
         gen = torch.Generator(dev).manual_seed(0)
         profile_steps(make_train_step(model, c, device=dev, generator=gen), b,
                       f"stage-1, nseg {c.nseg}")
-    rows += large_rows + voc_rows + [crit_row]
+    rows += large_rows + voc_rows + crit_rows
     # each kernel's launches on each main path that runs it, and their sum
     by_path = {f"stage1_nseg{NSEG}": stage1_launches,
                f"stage1_nseg{NSEG_LARGE}": large_launches,
                "plbl": plbl_launches, "row_ops": row_launches,
                "al_rounds": al_launches, "cli_recipe": cli_launches,
                "voc": voc_launches, "zoo": zoo_launches,
-               "criteria": crit_launches}
+               "criteria": crit_launches, "loader_arms": arms_launches}
     launches = sum((Counter(n) for n in by_path.values()), Counter())
     check(all(launches[name] > 0 for name in KERNELS),
           f"a kernel was never launched on a main path: {dict(launches)}")
@@ -2908,7 +3338,8 @@ def main():
     # every slice's line at the end, so the last 24 kB of the output hold
     # them all
     compact = {"separators": (",", ":")}
-    for line in (zoo_line, crit_line, cli_line, voc_line, eval_stats):
+    for line in (zoo_line, crit_line, cli_line, arms_line, voc_line,
+                 eval_stats):
         print(json.dumps(line, **compact))
     print(json.dumps({
         "slice": "cityscapes stage-1 train step", "card": smi,

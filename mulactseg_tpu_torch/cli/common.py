@@ -1,14 +1,17 @@
 """Shared CLI wiring, the port's copy of mulactseg_tpu/cli/common.py:
 config -> datasets -> active set (seed_everything, build_active_datasets
-:32-140, _build_val_dataset :190, setup_run :237).
+:32-140, the dominant arm :148-176, _build_val_dataset :179-200, the
+mixed-scale arm :203-234, setup_run :237).
 
-Ported: the synthetic fixture and the recipes' or_labeling branch
-(region_cityscapes_or_tensor and its _ignore twin, the VOC recipe's
-region_voc_or_tensor with identity label encoding, and the loader names
-the recipes' eval and stage-2 commands pass through it:
-eval_region_cityscapes_all, region_cityscapes_plbl, eval_region_voc_all_ms,
-region_voc_plbl). The other branches raise, naming ROADMAP.md queue A,
-item 18.
+Every branch of the JAX package's is ported: the synthetic fixture; the
+or_labeling loaders (region_cityscapes_or_tensor and its _ignore twin,
+VOC's region_voc_or_tensor, the research multi-hot rewrites, or_plbl,
+oracle and woignore, async and asyncv2, and the finer superpixel map the
+hierarchy and mseg methods force); the dominant-labelling arm
+(--no-or-labeling); the mixed-scale mseg loaders; SYNTHIA's validation
+labels. The analysis loaders of the JAX package's data/stats.py
+(count_all, visualize_minor, dom_w_gt, dominant_all_sample) serve only
+the analysis evals and raise, naming ROADMAP.md queue A, item 15.
 """
 
 from __future__ import annotations
@@ -24,22 +27,24 @@ from mulactseg_tpu_torch.data.datasets import (
     ValDataset,
     encode_cityscapes,
     encode_identity,
+    encode_synthia,
+    open_label_synthia,
 )
 from mulactseg_tpu_torch.data.synthetic import SyntheticRegionDataset
 from mulactseg_tpu_torch.data.transforms import (
+    PairedTransform,
     get_train_transform,
     get_val_transform,
 )
 from mulactseg_tpu_torch.utils.logging import MetricsSink, get_file_logger
 
-_NOT_PORTED = "is not ported yet: ROADMAP.md queue A, item 18"
 # loader-name fragments of the analysis loaders (the JAX package's
 # data/stats.py LOADER_MODES)
 _STATS_LOADERS = ("count_all", "visualize_minor", "dom_w_gt",
                   "dominant_all_sample")
+# the research rewrites, in the JAX package's order of precedence
 _MULTIHOT_REWRITES = ("tinyfilter_recommend", "tinyfilter", "ratiofilter",
-                      "ratiosample", "dominantsample", "toponebase",
-                      "ratiofilt")
+                      "ratiosample", "dominantsample", "toponebase")
 
 
 def seed_everything(seed: int):
@@ -70,37 +75,53 @@ def build_active_datasets(cfg):
         encode = (encode_cityscapes if cfg.dataset == "cityscapes"
                   else encode_identity)
     loader = cfg.loader
-    for on, what in ((loader.startswith("mseg"), "the mixed-scale loaders "
-                      "(RegionDatasetMseg, MsegRegionActiveSet)"),
-                     (any(f in loader for f in _STATS_LOADERS),
-                      "the analysis loaders (data/stats.py)"),
-                     (not cfg.or_labeling, "the dominant-labelling arm "
-                      "(RegionDatasetDominant)"),
-                     (any(f in loader for f in _MULTIHOT_REWRITES),
-                      "the research multi-hot rewrites "
-                      "(data/research_filters.py)"),
-                     (any(f in loader for f in ("or_plbl", "oracle",
-                                                "async")),
-                      "the or_plbl, oracle and async loaders")):
-        if on:
-            raise NotImplementedError(f"loader {loader!r}: {what} "
-                                      + _NOT_PORTED)
-    if cfg.load_smaller_spx or "hier" in cfg.method or \
-            cfg.method.endswith("_mseg"):
-        raise NotImplementedError("the finer superpixel map "
-                                  "(load_smaller_spx) " + _NOT_PORTED)
+    if loader.startswith("mseg"):
+        return _build_mseg_datasets(cfg, encode)
+    if any(f in loader for f in _STATS_LOADERS):
+        raise NotImplementedError(
+            f"loader {loader!r}: the analysis loaders (data/stats.py) are "
+            "not ported yet: ROADMAP.md queue A, item 15")
+    if not cfg.or_labeling:
+        return _build_dominant_datasets(cfg, encode)
 
     tf_name = cfg.train_transform
-    # the _ignore loaders carry [GT, spx]: the transform pads each with
-    # its own value (255, nseg)
-    if "ignore" in loader and "ignore" not in tf_name:
+    # the loaders whose item carries the GT or the pseudo-label map before
+    # spx (the _ignore, oracle and or_plbl loaders) take the transform that
+    # pads each with its own value (255, nseg)
+    if (("ignore" in loader or "oracle" in loader or "or_plbl" in loader)
+            and "ignore" not in tf_name):
         tf_name = tf_name.replace("_multi_", "_multi_ignore_")
-    label = RegionDatasetOr(cfg, cfg.trg_datalist, cfg.region_dict,
-                            split="active-label",
-                            transform=get_train_transform(tf_name, cfg,
-                                                          seed=cfg.seed),
-                            encode_fn=encode,
-                            ignore_gt_in_spmask="ignore" in loader)
+    mh_transform = next((k for k in _MULTIHOT_REWRITES if k in loader), None)
+    if mh_transform is None and "ratiofilt" in loader:
+        # eval_region_cityscapes_ratiofilt_all: the ratiofilter rewrite
+        mh_transform = "ratiofilter"
+    plbl_dir = None
+    if "or_plbl" in loader:
+        # the previous round's saved pseudo labels, found from the resume
+        # checkpoint as stage 2 finds them (region_cityscapes_or_plbl.py:
+        # 17-23)
+        from mulactseg_tpu_torch.plbl.generator import plbl_save_dir
+
+        if not cfg.resume_checkpoint:
+            raise ValueError(f"loader {loader!r} needs --resume-checkpoint "
+                             "to locate the plbl_gen round directory")
+        plbl_dir = plbl_save_dir(cfg.resume_checkpoint, cfg.plbl_type,
+                                 f"{cfg.init_iteration:02d}")
+    label = RegionDatasetOr(
+        cfg, cfg.trg_datalist, cfg.region_dict, split="active-label",
+        transform=get_train_transform(tf_name, cfg, seed=cfg.seed),
+        encode_fn=encode,
+        # woignore keeps 255 in spmask and in the oracle labels
+        ignore_gt_in_spmask="ignore" in loader and "woignore" not in loader,
+        load_smaller_spx=cfg.load_smaller_spx or "hier" in cfg.method
+        or cfg.method.endswith("_mseg"),
+        async_views="async" in loader,
+        async_weak_hflip="asyncv2" in loader,
+        weak_size=(1024, 2048) if cfg.dataset == "cityscapes" else None,
+        multihot_transform=mh_transform,
+        oracle_labels="oracle" in loader,
+        oracle_keep_ignore="woignore" in loader,
+        plbl_dir=plbl_dir)
     pool = RegionDatasetOr(cfg, cfg.trg_datalist, cfg.region_dict,
                            split="active-ulabel", transform=None,
                            encode_fn=encode,
@@ -110,11 +131,35 @@ def build_active_datasets(cfg):
     return RegionActiveSet(cfg, pool, label), _build_val_dataset(cfg, encode)
 
 
+def _build_dominant_datasets(cfg, encode):
+    """The dominant-labelling arm (--no-or-labeling; the reference's
+    non-Or branch, dataloader/__init__.py:143-145): RegionDatasetDominant
+    over the gtFine_dominant* PNGs that tools/label_assignment writes,
+    with predignore, withgt and oracle (full supervision) from the loader
+    name and the method."""
+    from mulactseg_tpu_torch.data.datasets import RegionDatasetDominant
+
+    with_gt = "withgt" in cfg.loader
+    pred_ignore = "predignore" in cfg.loader or "predignore" in cfg.method
+    pads = [cfg.ignore_idx, cfg.nseg] + ([cfg.ignore_idx] if with_gt
+                                         else [])
+    train_tf = PairedTransform(scale_range=(0.5, 2.0),
+                               crop_size=tuple(cfg.crop_size),
+                               pad_values=pads, hflip=True, seed=cfg.seed)
+    label = RegionDatasetDominant(
+        cfg, cfg.trg_datalist, cfg.region_dict, split="active-label",
+        transform=train_tf, encode_fn=encode, pred_ignore=pred_ignore,
+        with_gt=with_gt, full_supervision="oracle" in cfg.loader)
+    pool = RegionDatasetDominant(
+        cfg, cfg.trg_datalist, cfg.region_dict, split="active-ulabel",
+        transform=None, encode_fn=encode)
+    return RegionActiveSet(cfg, pool, label), _build_val_dataset(cfg, encode)
+
+
 def _build_val_dataset(cfg, encode):
     """The validation dataset, or None where the datalist is absent; gta5
-    shares the Cityscapes table (synthia is item 18)."""
-    if cfg.dataset == "synthia":
-        raise NotImplementedError("the SYNTHIA label reader " + _NOT_PORTED)
+    shares the Cityscapes table, SYNTHIA has its own table and reads the
+    first channel of its label PNGs."""
     val_list = cfg.val_datalist or os.path.join(cfg.datalist_dir, "val.txt")
     if not os.path.exists(val_list):
         if cfg.val_datalist:
@@ -123,10 +168,44 @@ def _build_val_dataset(cfg, encode):
             raise FileNotFoundError(
                 f"--val_datalist {cfg.val_datalist!r} does not exist")
         return None
-    if cfg.dataset == "gta5":
+    label_opener = None
+    if cfg.dataset == "synthia":
+        encode, label_opener = encode_synthia, open_label_synthia
+    elif cfg.dataset == "gta5":
         encode = encode_cityscapes
     return ValDataset(cfg, val_list, transform=get_val_transform(cfg),
-                      encode_fn=encode)
+                      encode_fn=encode, label_opener=label_opener)
+
+
+def _build_mseg_datasets(cfg, encode):
+    """The mixed-scale arm (mseg_region_cityscapes.py:77-87): each level's
+    datalist and region dict are the previous level's paths with the nseg
+    token swapped; each level's superpixel map pads with its own nseg."""
+    from mulactseg_tpu_torch.active.mseg_active_set import MsegRegionActiveSet
+    from mulactseg_tpu_torch.data.datasets import RegionDatasetMseg
+
+    levels = sorted(int(n) for n in cfg.nseg_list)
+    if not levels:
+        raise ValueError("mseg loader requires --nseg-list")
+    datalists, region_dicts = {}, {}
+    dl, rd, cur = cfg.trg_datalist, cfg.region_dict, str(cfg.nseg)
+    for nseg in levels:
+        dl = dl.replace(cur, str(nseg))
+        rd = rd.replace(cur, str(nseg))
+        cur = str(nseg)
+        datalists[nseg], region_dicts[nseg] = dl, rd
+    train_tf = PairedTransform(scale_range=(0.5, 2.0),
+                               crop_size=tuple(cfg.crop_size),
+                               pad_values=levels, hflip=True, seed=cfg.seed)
+    label = RegionDatasetMseg(cfg, datalists, region_dicts,
+                              split="active-label", transform=train_tf,
+                              encode_fn=encode)
+    pool = RegionDatasetMseg(cfg, datalists, region_dicts,
+                             split="active-ulabel", transform=None,
+                             encode_fn=encode,
+                             multi_hot_by_nseg=label.mseg_mh_cls)
+    val = _build_val_dataset(cfg, encode)
+    return MsegRegionActiveSet(cfg, pool, label, root=cfg.data_root), val
 
 
 def setup_run(cfg):

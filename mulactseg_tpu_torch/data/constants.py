@@ -1,7 +1,8 @@
 """Dataset constants, the port's copy of mulactseg_tpu/data/constants.py:
 the ImageNet normalisation (:35-36), the Cityscapes label id -> train id
-table that encode_cityscapes reads (:12-20), and the PASCAL VOC class
-names and palette (:38-60), which the VOC label PNGs index."""
+table that encode_cityscapes reads (:12-20), the SYNTHIA label id ->
+Cityscapes train id table of encode_synthia (:68-73), and the PASCAL VOC
+class names and palette (:38-60), which the VOC label PNGs index."""
 
 import numpy as np
 
@@ -15,6 +16,13 @@ _CITYSCAPES_ID_TO_TRAIN = {
 ID_TO_TRAIN_ID = np.full(256, 255, dtype=np.uint8)
 for _k, _v in _CITYSCAPES_ID_TO_TRAIN.items():
     ID_TO_TRAIN_ID[_k] = _v
+
+# SYNTHIA raw id -> Cityscapes train id (255 = ignore), indexed by the
+# SYNTHIA label id (the reference's dataloader/constant.py:88-90)
+SYN_ID_TO_TRAIN_ID = np.array(
+    [255, 10, 2, 0, 1, 4, 8, 5, 13, 7, 11, 18, 17,
+     255, 255, 6, 9, 12, 14, 15, 16, 3, 255, 255, 255,
+     255, 255, 255, 255, 255, 255, 255, 255, 255, 255], dtype=np.uint8)
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)

@@ -53,12 +53,17 @@ class SyntheticRegionDataset:
     multi-hot, target_bits, spx, spmask over the selected superpixels);
     'active-ulabel' -> pool items (images, spx, labels = the multi-hot);
     'val' -> (images, GT labels). Images are normalised float32
-    (3, H, W). The JAX package's transform option, smaller superpixel
-    map and weak views serve the criteria and loaders not ported yet
-    (ROADMAP.md queue A, items 14b and 18)."""
+    (3, H, W). small_nseg adds 'spx_small', a finer grid, to training
+    items (the hierarchy criteria); async_views adds the weak view's keys
+    ('images_weak', 'spx_weak', 'spmask_weak', 'spx_small_weak'), copies
+    of the item's own, as the JAX fixture makes them. The JAX fixture's
+    transform option serves no caller of the port and is left out."""
 
     def __init__(self, *, n_images=4, H=64, W=64, num_classes=5, nseg=16,
-                 split="active-label", seed=0, ignore_frac=0.05):
+                 split="active-label", seed=0, ignore_frac=0.05,
+                 small_nseg=None, async_views=False):
+        self.small_nseg = small_nseg
+        self.async_views = async_views
         self.nseg = nseg
         self.num_classes = num_classes
         self.split = split
@@ -68,6 +73,8 @@ class SyntheticRegionDataset:
         self.gts = []
         spx_map = grid_superpixels(H, W, nseg)
         self.spx_map = spx_map
+        self.spx_small_map = (grid_superpixels(H, W, small_nseg)
+                              if small_nseg else None)
         mh = []
         self.im_idx: List[List[str]] = []
         self.suppix: Dict[str, List[int]] = {}
@@ -110,6 +117,14 @@ class SyntheticRegionDataset:
                   "spmask": spmask, "fnames": key}
         if target.shape[-1] <= 31:
             sample["target_bits"] = pixel_target_bits(target, sp, spmask)
+        if self.spx_small_map is not None:
+            sample["spx_small"] = self.spx_small_map.astype(np.int32)
+        if self.async_views:
+            sample["images_weak"] = im
+            sample["spx_weak"] = sp
+            sample["spmask_weak"] = spmask
+            if self.spx_small_map is not None:
+                sample["spx_small_weak"] = sample["spx_small"]
         return sample
 
 

@@ -1,12 +1,14 @@
 """Training and eval steps: the port of mulactseg_tpu/engine/train.py.
 
-The criteria are the JAX package's CRITERIA (train.py:491-543) but the
-eleven of ROADMAP.md queue A, item 14b (PENDING), in the same order: the
-fused lossdecomp of stage 1 (active_joint_multi_predignore_lossdecomp on
-Cityscapes' C+1-class model, active_joint_multi_lossdecomp on VOC's
-21-class one; the unfused lossdecomp for a batch without target bits),
-the joint group + MC criteria and their ablations, pwce, top1plbl,
-wgroup, sequence, and the plain temperature CE of stage 2
+The criteria are the JAX package's CRITERIA (train.py:491-543) but
+active_slide, which needs the sliding forward of ROADMAP.md queue A, item
+15 (PENDING), in the same order: the fused lossdecomp of stage 1
+(active_joint_multi_predignore_lossdecomp on Cityscapes' C+1-class model,
+active_joint_multi_lossdecomp on VOC's 21-class one; the unfused
+lossdecomp for a batch without target bits), the joint group + MC
+criteria and their ablations, the online pseudo-label family, pwce,
+top1plbl, wgroup, the two-scale hierarchy family, the mixed-scale mseg
+criterion, sequence, and the plain temperature CE of stage 2
 (active_predignore; active on VOC). NaN guards mirror
 trainer/active_joint_multi.py:17-29 (zero_if_nan per component).
 
@@ -20,7 +22,6 @@ dispatch latency and has no counterpart here.
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -29,7 +30,15 @@ from mulactseg_tpu_torch.data.constants import IMAGENET_MEAN, IMAGENET_STD
 from mulactseg_tpu_torch.device import resolve_device
 from mulactseg_tpu_torch.engine.state import make_optimizer, set_lr
 from mulactseg_tpu_torch.losses.fused import lossdecomp_fused
+from mulactseg_tpu_torch.losses.hier import (
+    async_hier_group_multi_label_ce,
+    aug_hier_group_multi_label_ce,
+    hier_group_multi_label_ce,
+)
+from mulactseg_tpu_torch.losses.mseg import mseg_joint_loss
 from mulactseg_tpu_torch.losses.online import (
+    local_proto_ce,
+    local_proto_plbl,
     prototype_weight_targets,
     prototype_weighted_ce,
 )
@@ -53,6 +62,7 @@ from mulactseg_tpu_torch.losses.partial import (
 )
 from mulactseg_tpu_torch.losses.standard import cross_entropy
 from mulactseg_tpu_torch.models.layers import Dropout, bn_frozen
+from mulactseg_tpu_torch.utils.schedule import ramp_up
 
 _REGION = ("target", "spx", "spmask")
 
@@ -219,10 +229,8 @@ def _pos_plus_group(cfg, pos_fn):
 
 def _ramp(cfg, frac):
     """The sigmoid ramp of step / total under --dorampup, else 1.0
-    (train.py:213-216)."""
-    if frac > 1.0 or not cfg.dorampup:
-        return 1.0
-    return (2.0 / (1.0 + math.exp(-frac / cfg.lamparam)) - 1.0) * cfg.lamscale
+    (train.py:213-216, :386-389)."""
+    return ramp_up(frac, cfg.lamparam, cfg.lamscale, cfg.dorampup)
 
 
 def _top1plbl_loss(cfg):
@@ -288,6 +296,121 @@ def _wgroup_loss(cfg):
     return fn
 
 
+def _hier_joint_loss(cfg, async_views=False, weight_reduce=None):
+    """coeff * MC + coeff_gm * the hierarchy group term (train.py:
+    282-321): with async_views the pairs come from the weak view, whose
+    eval-mode logits the step adds to the batch (needs_weak_forward);
+    --nocropsp takes the border-stripping aug variant. The JAX criterion
+    passes no Gumbel key, so cfg.gumbel_scale changes nothing
+    (ROADMAP.md, open questions for the reference's owners)."""
+    hier_fn = (aug_hier_group_multi_label_ce if cfg.nocropsp
+               else hier_group_multi_label_ce)
+
+    def fn(logits, batch):
+        pos = multi_choice_ce(*_args(logits, batch), temp=cfg.multi_ce_temp)
+        if async_views:
+            hier = async_hier_group_multi_label_ce(
+                logits, batch["logits_weak"], batch["target"],
+                batch["spx_weak"], batch["spx_small"],
+                batch["spx_small_weak"], batch["spmask"],
+                batch["spmask_weak"], nseg=cfg.nseg,
+                small_nseg=cfg.small_nseg, temp=cfg.group_ce_temp,
+                weight_reduce=weight_reduce)
+        else:
+            hier = hier_fn(
+                logits, batch["target"], batch["spx"], batch["spx_small"],
+                batch["spmask"], nseg=cfg.nseg, small_nseg=cfg.small_nseg,
+                temp=cfg.group_ce_temp, only_single=cfg.group_only_single)
+        total = cfg.coeff * pos + cfg.coeff_gm * hier
+        return _zero_if_nan(total), {"train_loss": total, "pos_loss": pos,
+                                     "group_loss": hier}
+    fn.keys = _REGION + ("spx_small",)
+    if async_views:
+        fn.keys += ("images_weak", "spx_weak", "spmask_weak",
+                    "spx_small_weak")
+        fn.needs_weak_forward = True
+    return fn
+
+
+def _online_plbl_loss(cfg, weighted=False, only_plbl=False, do_mc=False,
+                      weight_source="sim"):
+    """The online pseudo-label family (train.py:324-402): lam * the CE
+    against each step's online pseudo labels (losses/online.
+    local_proto_plbl on the eval-mode forward's features and softmax at
+    group_ce_temp) + coeff * MC, unless only_plbl, + coeff_gm * the group
+    term of the multi-hot pixels, with do_mc. lam is the ramp under
+    --dorampup, else 1.0. weighted scales each pixel's CE by a detached
+    weight: 'sim', the cosine similarity to its prototype, or 'prob', the
+    eval softmax at its pseudo label (1.0 at the prototypes' own pixels
+    under --weight_wo_proto). --th_wplbl keeps only the pixels whose
+    weight exceeds it, unweighted."""
+    def fn(logits, batch, extra):
+        feat, plbl_logits = extra["feat"], extra["plbl_logits"]
+        B, C = plbl_logits.shape[:2]
+        probs = torch.softmax(plbl_logits.float().reshape(B, C, -1)
+                              / cfg.group_ce_temp, dim=1)
+        out = [local_proto_plbl(
+            feat[b].reshape(feat.shape[1], -1).t(), probs[b].t(),
+            batch["target"][b], batch["spx"][b], batch["spmask"][b],
+            nseg=cfg.nseg) for b in range(B)]
+        plbl, sim, is_src = (torch.stack(t) for t in zip(*out))  # (B, P)
+        w = None
+        if weighted:
+            if weight_source == "prob":
+                w = probs.gather(1, plbl.clamp(0, C - 1)[:, None])[:, 0]
+                w = torch.where(plbl != cfg.ignore_idx, w, 0.0)
+                if cfg.weight_wo_proto:
+                    w = torch.where(is_src, 1.0, w)
+            else:
+                w = sim
+        if weighted and cfg.th_wplbl is not None:
+            # a hard gate: pixels at weight <= th leave the sum and the
+            # mean's count
+            plbl = torch.where(w > cfg.th_wplbl, plbl, cfg.ignore_idx)
+            w = None
+        shape = (B,) + logits.shape[2:]
+        proto = local_proto_ce(logits, plbl.reshape(shape),
+                               temp=cfg.group_ce_temp,
+                               weights=None if w is None else w.reshape(shape))
+        terms = {"local_proto_loss": proto}
+        total = _ramp(cfg, extra["frac"]) * proto
+        if not only_plbl:
+            pos = multi_choice_ce(*_args(logits, batch),
+                                  temp=cfg.multi_ce_temp, slice_last=False)
+            total = total + cfg.coeff * pos
+            terms["pos_loss"] = pos
+        if do_mc:
+            group = group_multi_label_ce(*_args(logits, batch), nseg=cfg.nseg,
+                                         temp=cfg.group_ce_temp,
+                                         slice_last=False, only_multi=True)
+            total = total + cfg.coeff_gm * group
+            terms["group_loss"] = group
+        terms["train_loss"] = total
+        return _zero_if_nan(total), terms
+    fn.keys = _REGION
+    fn.needs_feat = True
+    return fn
+
+
+def _mseg_loss(cfg):
+    """The mixed-superpixel-scale criterion (train.py:407-426): coeff * MC
+    + the group term over every level, the group temperature pinned to
+    1.0, as the reference hard-codes it whatever --group_ce_temp says."""
+    nseg_list = tuple(sorted(int(n) for n in cfg.nseg_list))
+    if not nseg_list:
+        raise ValueError("method _mseg requires cfg.nseg_list")
+    targets = tuple(f"mseg_target_{i}" for i in range(len(nseg_list)))
+
+    def fn(logits, batch):
+        total, aux = mseg_joint_loss(
+            logits, [batch[k] for k in targets], batch["mseg_spx"],
+            batch["mseg_spmask"], nseg_list=nseg_list, coeff=cfg.coeff,
+            multi_ce_temp=cfg.multi_ce_temp, group_ce_temp=1.0)
+        return _zero_if_nan(total), aux
+    fn.keys = ("mseg_spx", "mseg_spmask") + targets
+    return fn
+
+
 def _ablation_loss(cfg):
     """--loss_type switch over the MC term, with the sliced group term
     (train.py:429-462): rc_multi_ce, max_multi_ce, or rand_multi_ce, which
@@ -342,6 +465,17 @@ CRITERIA: Dict[str, Callable] = {
     "active_joint_multi_predignore_mclossablation2": _mclossablation2_loss,
     "active_predignore": _ce_loss,
     "active": _ce_loss,
+    "active_onlineplbl_multi_predignore": _online_plbl_loss,
+    "active_onlinewplbl_multi_predignore": lambda cfg: _online_plbl_loss(
+        cfg, weighted=True, weight_source="prob"),
+    "active_onlinesimwplbl_multi_predignore": lambda cfg: _online_plbl_loss(
+        cfg, weighted=True),
+    "active_onlinewplblonly_multi_predignore": lambda cfg: _online_plbl_loss(
+        cfg, weighted=True, only_plbl=True, weight_source="prob"),
+    "active_onlineplbl_multi_predignore_domc": lambda cfg: _online_plbl_loss(
+        cfg, do_mc=True),
+    "active_onlinesimwplbl_multi_predignore_domc": lambda cfg:
+        _online_plbl_loss(cfg, weighted=True, do_mc=True),
     "active_joint_multi_predignore_precise": lambda cfg: _precise_loss(
         cfg, with_group=True),
     "active_joint_multi_predignore_multice_precise": lambda cfg:
@@ -359,6 +493,13 @@ CRITERIA: Dict[str, Callable] = {
     "active_joint_multi_predignore_lscale": lambda cfg:
         _pos_plus_group(cfg, multi_choice_ce_scale),
     "active_joint_multi_predignore_wgroup": _wgroup_loss,
+    "active_joint_hier_multi": lambda cfg: _hier_joint_loss(cfg),
+    "active_joint_hier_multi_async": lambda cfg: _hier_joint_loss(
+        cfg, async_views=True),
+    # --weight_reduce, 'max' by default (the reference's utils/loss.py:238)
+    "active_joint_hier_multi_async_weight": lambda cfg: _hier_joint_loss(
+        cfg, async_views=True, weight_reduce=cfg.weight_reduce),
+    "active_joint_multi_predignore_mseg": _mseg_loss,
     "active_joint_multi_ablation": _ablation_loss,
     "active_joint_multi_predignore_sequence": _sequence_loss,
     # the reference ships this trainer as an empty file; the JAX package
@@ -366,29 +507,16 @@ CRITERIA: Dict[str, Callable] = {
     "active_joint_multi_predignore_logprecision": lambda cfg: _joint_loss(
         cfg, False),
 }
-# the JAX package's other criteria: ROADMAP.md queue A, item 14b (they
-# need the online pseudo labels, the hierarchy and mixed-scale losses,
-# or the sliding forward)
-PENDING = (
-    "active_slide",
-    "active_onlineplbl_multi_predignore",
-    "active_onlinewplbl_multi_predignore",
-    "active_onlinesimwplbl_multi_predignore",
-    "active_onlinewplblonly_multi_predignore",
-    "active_onlineplbl_multi_predignore_domc",
-    "active_onlinesimwplbl_multi_predignore_domc",
-    "active_joint_hier_multi",
-    "active_joint_hier_multi_async",
-    "active_joint_hier_multi_async_weight",
-    "active_joint_multi_predignore_mseg",
-)
+# the JAX package's other criterion: active_slide trains with plain CE
+# through the sliding-window forward, ROADMAP.md queue A, item 15
+PENDING = ("active_slide",)
 
 
 def get_criterion(cfg):
     if cfg.method in PENDING:
         raise NotImplementedError(
-            f"method {cfg.method!r} is not ported yet: ROADMAP.md queue A, "
-            "item 14b")
+            f"method {cfg.method!r} (the sliding-window forward) is not "
+            "ported yet: ROADMAP.md queue A, item 15")
     if cfg.method not in CRITERIA:
         raise KeyError(
             f"method {cfg.method!r} has no registered criterion; "
@@ -412,8 +540,12 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
     criterion's keys (criterion.keys): 'target' (B, nseg, C) float32,
     'spx' (B, H, W) int and 'spmask' (B, H, W) bool for the region
     criteria, with 'target_bits' (B, H, W) int32 for the fused lossdecomp;
-    'labels' (B, H, W) int for CE, the precise and the sequence criteria.
-    Other keys stay on the host. `optimizer` defaults to
+    'labels' (B, H, W) int for CE, the precise and the sequence criteria;
+    'spx_small' (B, H, W) for the hierarchy criteria, and for the async
+    ones 'images_weak' (B, 3, Hw, Ww) float32 or uint8 with 'spx_weak',
+    'spmask_weak' and 'spx_small_weak' (B, Hw, Ww); 'mseg_spx',
+    'mseg_spmask' (B, S, H, W) and 'mseg_target_<i>' for mseg. Other keys
+    stay on the host. `optimizer` defaults to
     make_optimizer(model, cfg). The step count (step.step, which sets the
     schedule; a caller restoring a checkpoint sets it), the optimizer
     (step.optimizer) and the dropout generator live on the returned
@@ -426,6 +558,9 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
     statistics stay as they are and dropout draws nothing. It hands
     extra = {feat, plbl_logits, frac = step / cfg.finetune_itrs}, the
     step counted before the update (train.py:601-611). A criterion with
+    needs_weak_forward (the async hierarchy criteria) gets the eval-mode
+    logits of the weak view in batch['logits_weak'], made the same way
+    before the train forward (train.py:595-600). A criterion with
     needs_rng (rand_multi_ce) draws from a generator of its own on the
     device, apart from the dropout stream, seeded with cfg.seed + 1 (the
     round loop seeds dropout with cfg.seed)."""
@@ -433,6 +568,7 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
     criterion = get_criterion(cfg)
     needs_feat = getattr(criterion, "needs_feat", False)
     needs_rng = getattr(criterion, "needs_rng", False)
+    needs_weak = getattr(criterion, "needs_weak_forward", False)
     opt = optimizer if optimizer is not None else make_optimizer(model, cfg)
     keys = ("images",) + criterion.keys
     for m in model.modules():
@@ -449,6 +585,14 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
         if images.dtype == torch.uint8:
             images = _device_normalize(images)
         extra = None
+        if needs_weak:
+            weak = batch["images_weak"]
+            if weak.dtype == torch.uint8:
+                weak = _device_normalize(weak)
+            model.eval()
+            with torch.no_grad(), torch.autocast(
+                    dev.type, dtype=torch.bfloat16, enabled=autocast):
+                batch["logits_weak"] = model(weak).float()
         if needs_feat:
             model.eval()
             with torch.no_grad(), torch.autocast(

@@ -1,13 +1,17 @@
 """loss_type string registry: the port of mulactseg_tpu/losses/registry.py
 (the reference's BaseTrainer --loss-type, trainer/base.py:78-114). Each
 entry builds fn(logits, batch) -> loss, or (group, pos) for the joint
-type; logits are float32 NCHW. The hierarchy entries are ROADMAP.md queue
-A, item 14b, and raise when built."""
+type; logits are float32 NCHW.
+
+The hierarchy entries read b['spx_small'], the finer superpixel map
+(hier.py); like the JAX package's they pass no Gumbel key, so
+cfg.gumbel_scale changes nothing there."""
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+from mulactseg_tpu_torch.losses.hier import hier_group_multi_label_ce
 from mulactseg_tpu_torch.losses.partial import (
     group_multi_label_ce,
     multi_choice_ce,
@@ -41,14 +45,20 @@ def _group(cfg):
 
 
 def _hier(cfg):
-    raise NotImplementedError(
-        f"loss_type {cfg.loss_type!r}: the hierarchy group loss "
-        "(losses/hier.py) is not ported yet: ROADMAP.md queue A, item 14b")
+    return lambda lg, b: hier_group_multi_label_ce(
+        lg, b["target"], b["spx"], b["spx_small"], b["spmask"],
+        nseg=cfg.nseg, small_nseg=cfg.small_nseg, temp=cfg.group_ce_temp,
+        only_single=cfg.group_only_single)
 
 
 def _joint_multi(cfg):
     g, m = _group(cfg), _mc(cfg)
     return lambda lg, b: (g(lg, b), m(lg, b))
+
+
+def _joint_hier(cfg):
+    h, m = _hier(cfg), _mc(cfg)
+    return lambda lg, b: (h(lg, b), m(lg, b))
 
 
 def _rc_asym(cfg):
@@ -65,7 +75,7 @@ LOSS_TYPES: Dict[str, Callable] = {
     "group_multi_label_ce": _group,
     "hierarchy_group_multi_label_ce": _hier,
     "joint_multi_loss": _joint_multi,
-    "joint_hierarchy_multi_loss": _hier,
+    "joint_hierarchy_multi_loss": _joint_hier,
     "rc_asym_ce": _rc_asym,
 }
 

@@ -1,13 +1,15 @@
-"""Offline multi-hot label generation: the port's copy of
-mulactseg_tpu/tools/label_assignment.py (:25-130 and its tensor mode).
+"""Offline multi-hot and dominant label generation: the port's copy of
+mulactseg_tpu/tools/label_assignment.py.
 
-Writes the multi_hot_cls.npy (N, nseg, C+1), sp_size.npy and
-sp_gt_size.npy tensors that data/datasets.RegionDatasetOr reads (the
-reference's tools/label_assignment_tensor.py:50-67), vectorised: per
-image one boundary pass and one bincount over (superpixel, class) pairs.
-Files are read with utils/png.py. The dominant-label mode of the JAX
-tool serves the dominant arm and is not ported (ROADMAP.md queue A, item
-18).
+The tensor mode writes the multi_hot_cls.npy (N, nseg, C+1), sp_size.npy
+and sp_gt_size.npy tensors that data/datasets.RegionDatasetOr and the
+research rewrites read (the reference's tools/label_assignment_tensor.py:
+50-67), vectorised: per image one boundary pass and one bincount over
+(superpixel, class) pairs. The dominant mode writes one
+gtFine_dominant*-style PNG per image, every pixel its superpixel's most
+frequent class, that data/datasets.RegionDatasetDominant reads (the
+reference's label_assignment_dominant.py). Files are read and written
+with utils/png.py.
 
 Boundary trim: superpixel boundaries (4-neighbor 'thick' mode) dilated
 with a k x k kernel are excluded from each superpixel's histogram unless
@@ -91,6 +93,48 @@ def multi_hot_for_image(gt: np.ndarray, spx: np.ndarray, nseg: int,
     return mh, sizes
 
 
+def dominant_label_for_image(gt: np.ndarray, spx: np.ndarray, nseg: int,
+                             num_classes: int, ignore_idx: int = 255,
+                             count_ignore: bool = True) -> np.ndarray:
+    """Per-pixel dominant-class map: every pixel takes its superpixel's
+    most frequent class (label_assignment_dominant.py). With
+    count_ignore, the ignore class competes and wins as 255."""
+    spx_f = spx.reshape(-1)
+    gt_f = gt.reshape(-1)
+    hist = _hist(spx_f, gt_f, nseg, num_classes, ignore_idx).astype(np.int64)
+    if not count_ignore:
+        hist[:, -1] = -1
+    dom = hist.argmax(1)
+    dom = np.where(hist.max(1) <= 0, num_classes, dom)
+    dom_px = dom[np.clip(spx_f, 0, nseg - 1)]
+    out = np.where(dom_px == num_classes, ignore_idx, dom_px)
+    return out.reshape(gt.shape).astype(np.int32)
+
+
+def write_dominant_labels(rows, data_root: str, save_dir: str, nseg: int,
+                          num_classes: int, encode, generate_ignore: bool):
+    """The dominant mode over datalist rows (img, lbl, spx): one
+    {data_id}.png a row in save_dir, data_id the first three '_' tokens
+    of the image's name (label_assignment_dominant.py:34-41). Without
+    generate_ignore the 255 class does not vote, and the GT's 255 pixels
+    stay 255 (region_cityscapes_dominant_all.py:51-54)."""
+    from mulactseg_tpu_torch.data.datasets import open_label, open_spx
+    from mulactseg_tpu_torch.utils.png import write_gray8
+
+    os.makedirs(save_dir, exist_ok=True)
+    for img, lbl, spx in rows:
+        gt = encode(open_label(os.path.join(data_root, lbl)))
+        sp = open_spx(os.path.join(data_root, spx))
+        dom = dominant_label_for_image(gt, sp, nseg, num_classes,
+                                       count_ignore=generate_ignore)
+        if not generate_ignore:
+            dom = np.where(gt == 255, 255, dom)
+        stem = os.path.splitext(os.path.basename(img))[0]
+        data_id = "_".join(stem.split("_")[:3])
+        write_gray8(os.path.join(save_dir, f"{data_id}.png"),
+                    dom.astype(np.uint8))
+
+
 def generate_multi_hot_dataset(samples, nseg: int, num_classes: int,
                                out_dir: str, ignore_idx: int = 255,
                                trim: bool = True, trim_kernel: int = 5):
@@ -112,8 +156,8 @@ def generate_multi_hot_dataset(samples, nseg: int, num_classes: int,
 
 
 def main(argv=None):
-    """The tensor mode of the reference's offline label tool, with its
-    flag names:
+    """The reference's offline label tools, with their flag names; --mode
+    tensor (label_assignment_tensor.py):
 
         python -m mulactseg_tpu_torch.tools.label_assignment \\
             --datalist train_seed2048.txt --data_root DATA --nseg 2048 \\
@@ -121,9 +165,12 @@ def main(argv=None):
             --trim_kernel_size 5
 
     OUT is the directory data/datasets.multi_hot_paths names for the
-    training config (under DATA/superpixel_seed/). --ignore_size,
-    --mark_topk and --num_worker are accepted and unused, as in the
-    reference."""
+    training config (under DATA/superpixel_seed/). --mode dominant
+    (label_assignment_dominant.py) writes one {data_id}.png per image
+    into --save_data_dir (write_dominant_labels); --generate_ignore lets
+    the 255 class win a superpixel (the gtFine_dominant_ignore twin).
+    --ignore_size, --mark_topk and --num_worker are accepted and unused,
+    as in the reference."""
     import argparse
 
     from mulactseg_tpu_torch.data.datasets import (
@@ -134,7 +181,8 @@ def main(argv=None):
     )
 
     p = argparse.ArgumentParser("label_assignment")
-    p.add_argument("--mode", choices=["tensor"], default="tensor")
+    p.add_argument("--mode", choices=["tensor", "dominant"],
+                   default="tensor")
     p.add_argument("--datalist", required=True,
                    help="img\\tlbl\\tspx datalist")
     p.add_argument("--data_root", "--trg_data_dir", dest="data_root",
@@ -144,6 +192,7 @@ def main(argv=None):
     p.add_argument("--num_classes", type=int, default=19)
     p.add_argument("--trim_kernel_size", type=int, default=3)
     p.add_argument("--trim_multihot_boundary", action="store_true")
+    p.add_argument("--generate_ignore", action="store_true")
     p.add_argument("--label-encoding", choices=["cityscapes", "identity"],
                    default="cityscapes")
     p.add_argument("--num_worker", type=int, default=8)   # parity, unused
@@ -154,6 +203,12 @@ def main(argv=None):
               else encode_identity)
     with open(args.datalist) as f:
         rows = [l.split("\t") for l in f.read().splitlines() if l.strip()]
+    if args.mode == "dominant":
+        write_dominant_labels(rows, args.data_root, args.save_data_dir,
+                              args.nseg, args.num_classes, encode,
+                              args.generate_ignore)
+        print(f"wrote {len(rows)} dominant PNGs to {args.save_data_dir}")
+        return
     samples = ((encode(open_label(os.path.join(args.data_root, lbl))),
                 open_spx(os.path.join(args.data_root, spx)))
                for _, lbl, spx in rows)

@@ -152,6 +152,14 @@ def read_gray(path: str) -> np.ndarray:
     return pixels[:, :, 0]
 
 
+def read_channel0(path: str) -> np.ndarray:
+    """(H, W) first channel of any PNG the readers take: the map of a
+    greyscale file (uint8 or uint16), the index map of a palette file,
+    the red channel of an 8-bit RGB or RGBA file, as Pillow's
+    np.asarray(Image.open(path))[..., 0] gives it."""
+    return np.ascontiguousarray(_read(path)[0][:, :, 0])
+
+
 def read_gray8(path: str) -> np.ndarray:
     """(H, W) uint8 map of an 8-bit greyscale PNG."""
     pixels, colour_type = _read(path)

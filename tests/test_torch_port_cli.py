@@ -225,22 +225,30 @@ def test_recipe_scripts_parse_to_the_jax_configs(tmp_path):
 
 
 def test_loader_branches_left_to_port_raise(tmp_path):
+    """Only the analysis loaders (item 15) are left; the branches of item
+    18 build (tests/test_torch_port_loader_arms.py holds them against
+    JAX)."""
     root = tmp_path / "data"
     dl = write_tree(str(root), 1, 0, 16, 16, 4, seed=0, num_classes=3,
                     encoding="filter0", dataset="gta5")
     base = dict(data_root=str(root), datalist_dir=dl, nseg=4,
                 num_classes=3, dataset="gta5")
-    for kw in ({"loader": "mseg_region_cityscapes_or_tensor"},
-               {"loader": "region_cityscapes_count_all"},
-               {"or_labeling": False, "loader": "region_cityscapes"},
-               {"loader": "region_cityscapes_or_tensor_tinyfilter_gt"},
-               {"loader": "region_cityscapes_or_plbl"},
+    for kw in ({"loader": "region_cityscapes_count_all"},
+               {"loader": "region_cityscapes_visualize_minor"},
+               {"or_labeling": False, "loader": "region_cityscapes_dom_w_gt"},
+               {"or_labeling": False,
+                "loader": "region_cityscapes_dominant_all_sample"}):
+        cfg = Config(**{**base, **kw}).derive_paths()
+        with pytest.raises(NotImplementedError, match="item 15"):
+            common.build_active_datasets(cfg)
+    for kw in ({"loader": "region_cityscapes_or_tensor_tinyfilter_gt"},
                {"loader": "region_cityscapes_or_oracle"},
                {"loader": "region_cityscapes_or_tensor_ignore_async"},
-               {"load_smaller_spx": True}):
+               {"load_smaller_spx": True},
+               {"or_labeling": False, "loader": "region_cityscapes"}):
         cfg = Config(**{**base, **kw}).derive_paths()
-        with pytest.raises(NotImplementedError, match="item 18"):
-            common.build_active_datasets(cfg)
+        active, _ = common.build_active_datasets(cfg)
+        assert len(active.trg_pool_dataset) == 1
     with pytest.raises(NotImplementedError, match="item 15"):
         eval_al.main(["--method", "eval_naive_vis", "-p",
                       str(tmp_path / "run")], device="cpu")

@@ -936,3 +936,89 @@ def test_needs_feat_step_on_card_matches_cpu(dev, method, k5, monkeypatch):
             assert dict(_build.LAUNCHES) == {"seg_max_fwd": k5 * B}
     for k, v in auxes[0].items():
         assert v > 0 and auxes[1][k] == pytest.approx(v, rel=1e-5), k
+
+
+# the criteria that read more than a region batch: (method, Config
+# overrides, K5 launches an image)
+MORE_CRITERIA = [
+    ("active_onlineplbl_multi_predignore", {"dorampup": True}, 1),
+    ("active_onlinewplbl_multi_predignore", {"weight_wo_proto": True}, 1),
+    ("active_onlinesimwplbl_multi_predignore", {"th_wplbl": 0.3}, 1),
+    ("active_onlinewplblonly_multi_predignore", {}, 1),
+    ("active_onlineplbl_multi_predignore_domc", {}, 2),
+    ("active_onlinesimwplbl_multi_predignore_domc", {}, 2),
+    ("active_joint_hier_multi", {}, 1),
+    ("active_joint_hier_multi_async", {}, 1),
+    ("active_joint_hier_multi_async_weight", {}, 2),
+    ("active_joint_multi_predignore_mseg", {"nseg_list": (8, 20)}, 2),
+]
+
+
+@pytest.mark.parametrize("method,over,k5", MORE_CRITERIA,
+                         ids=[m[0] for m in MORE_CRITERIA])
+def test_more_criteria_on_card_match_cpu(dev, method, over, k5):
+    """Each criterion on the card (K5) against the CPU on N(0, 0.2^2)
+    logits: loss and parts within rtol 1e-5, the logits gradient within
+    1e-5 of its largest entry outside segments with a near-tie (of the
+    group terms' ids), and K5's launches."""
+    from chip_smoke import near_tie_pixels
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.engine.train import CRITERIA
+
+    rng = np.random.RandomState(len(method))
+    B, H, W, nseg, small, weak_hw = 2, 40, 48, 20, 80, (56, 64)
+    hier = "hier" in method
+    C = 7 if not hier else 6  # the hierarchy criteria slice the last off
+    batch = _region_batch(rng, B, H, W, nseg, 7)
+    batch["spx_small"] = np.stack([irregular_superpixels(H, W, small, rng)
+                                   for _ in range(B)]).astype(np.int32)
+    for k, n in (("spx_weak", nseg), ("spx_small_weak", small)):
+        batch[k] = np.stack([irregular_superpixels(*weak_hw, n, rng)
+                             for _ in range(B)]).astype(np.int32)
+    batch["spmask_weak"] = np.take_along_axis(
+        rng.rand(B, nseg) < 0.6, batch["spx_weak"].reshape(B, -1),
+        1).reshape(B, *weak_hw)
+    levels = over.get("nseg_list", ())
+    if levels:
+        batch["mseg_spx"] = np.stack([np.stack([
+            irregular_superpixels(H, W, n, rng) for n in levels])
+            for _ in range(B)]).astype(np.int32)
+        batch["mseg_spmask"] = rng.rand(B, len(levels), H, W) < 0.6
+        for i, n in enumerate(levels):
+            batch[f"mseg_target_{i}"] = (rng.rand(B, n, C) < 0.3).astype(
+                np.float32)
+    logits = (rng.randn(B, C, H, W) * 0.2).astype(np.float32)
+    extra = {"feat": rng.randn(B, 8, H, W).astype(np.float32),
+             "plbl_logits": (rng.randn(B, C, H, W) * 0.2).astype(
+                 np.float32)}
+    weak = (rng.randn(B, C, *weak_hw) * 0.2).astype(np.float32)
+    cfg = Config(num_classes=C - 1, nseg=nseg, method=method,
+                 finetune_itrs=10, small_nseg=small, **over)
+    out = []
+    for d in ("cpu", dev):
+        crit = CRITERIA[method](cfg)
+        x = torch.from_numpy(logits).to(d).requires_grad_(True)
+        tb = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        tb["logits_weak"] = torch.from_numpy(weak).to(d)
+        _build.reset_launches()
+        if getattr(crit, "needs_feat", False):
+            ex = {k: torch.from_numpy(v).to(d) for k, v in extra.items()}
+            total, aux = crit(x, tb, dict(ex, frac=0.25))
+        else:
+            total, aux = crit(x, tb)
+        total.backward()
+        out.append(({k: float(v.detach()) for k, v in aux.items()},
+                    x.grad.cpu()))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"seg_max_fwd": k5 * B}
+    (ref, gref), (got, ggot) = out
+    for k in ref:
+        assert got[k] == pytest.approx(ref[k], rel=1e-5, abs=1e-7), k
+    assert ref["train_loss"] > 0
+    bad = ((ggot - gref).abs() > 1e-5 * gref.abs().max()).any(dim=1)
+    if bool(bad.any()):
+        probs = torch.softmax(torch.from_numpy(logits).reshape(B, C, -1)
+                              / cfg.group_ce_temp, dim=1)
+        sid = np.where(batch["spmask"], batch["spx"], nseg).reshape(B, -1)
+        ties = near_tie_pixels(probs, sid, nseg).reshape(B, H, W)
+        assert not bool((bad & ~ties).any())

@@ -220,6 +220,12 @@ def test_criteria_registry():
         "active_joint_multi_predignore", "active_joint_multi",
         "active_joint_multi_predignore_mclossablation2",
         "active_predignore", "active",
+        "active_onlineplbl_multi_predignore",
+        "active_onlinewplbl_multi_predignore",
+        "active_onlinesimwplbl_multi_predignore",
+        "active_onlinewplblonly_multi_predignore",
+        "active_onlineplbl_multi_predignore_domc",
+        "active_onlinesimwplbl_multi_predignore_domc",
         "active_joint_multi_predignore_precise",
         "active_joint_multi_predignore_multice_precise",
         "active_joint_multi_predignore_multient",
@@ -231,13 +237,16 @@ def test_criteria_registry():
         "active_joint_multi_predignore_mclossablation",
         "active_joint_multi_predignore_lscale",
         "active_joint_multi_predignore_wgroup",
+        "active_joint_hier_multi", "active_joint_hier_multi_async",
+        "active_joint_hier_multi_async_weight",
+        "active_joint_multi_predignore_mseg",
         "active_joint_multi_ablation",
         "active_joint_multi_predignore_sequence",
         "active_joint_multi_predignore_logprecision"]
     with pytest.raises(KeyError, match="available"):
         get_criterion(Config(method="active_joint_multi_nonexistent"))
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        get_criterion(Config(method="active_joint_hier_multi"))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        get_criterion(Config(method="active_slide"))
 
 
 def test_synthetic_and_bit_packer_copies_match_jax():
