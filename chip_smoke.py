@@ -195,6 +195,44 @@
    per-command seconds, per round train img/s (whole, first epoch, the
    rest), plbl img/s and mIoU, stage-2 img/s and mIoU, JPEG decode ms per
    file, launches, peak GiB.
+8e. The remaining evals over files (evals): a Cityscapes-format tree of
+   EV_TRAIN training and EV_VAL validation images at 1024x2048 with
+   dominant labels, a checkpoint of the seeded recipe model and one of a
+   seeded 19-output model (the probe's and the _voc methods' head), and
+   round-1 and round-2 datalists labelling EV_SELECT of each image's
+   superpixels (a third of them in round 1). First K5, held bitwise and
+   timed as in item 8.2 at two instances: one image's softmax of the
+   sliding-summed logits under its labelled superpixels' ids (slide_plbl)
+   and one 768x768 crop's T = 1 softmax over the 19-output model's
+   channels under its spmask ids (probe).
+   Then through eval_al.main, every launch counter set to 0 just before
+   each command and read just after: eval_naive with --sliding_eval
+   (EV_WINDOWS windows an image, no kernel); the eight plbl types of the
+   ten ported last that the CLI reaches (one with --save_vis), K5 once an
+   image for the three cosine ones and never for the five simple ones,
+   every PNG decoded; nine of the eleven analysis methods, K5 once an
+   image for the cosine-backed ones, never for eval_within_multihot and
+   eval_naive_vis, every overlay decoded; active_joint_multi_analysis, K5
+   once an image. Then the sliding eval again, warm, beside the direct
+   one on the validation images in memory (img/s, peak GiB; the same
+   mIoU as the command's). The JAX CLI reaches neither eval_all_dominant
+   nor the cosprop_onehot types (their 'target' is a per-pixel dominant
+   map; its loaders give the multi-hot, ROADMAP.md question 7), nor a
+   _voc method on Cityscapes: those run at the generator and evaluator
+   level on the label set's items with the tree's dominant labels,
+   counted alike. Then
+   each statistics loader's items/s over the label set (worker
+   processes), its item's keys, dtypes and shapes checked; train_al cut
+   to 1 round of EV_ITRS steps through dom_w_gt and dominant_all_sample
+   (the dominant arm) and through active_slide with --sliding_eval (one
+   sliding validation): finite losses, no kernel. Last, the small checks:
+   SlidingEval at crop EV_CROP on an EV_HW image with the seeded model in
+   float32, TF32 off, card against CPU within 1e-4 of the largest logit,
+   and the simple pseudo-labels, boundary_mask and top1_selection_counts
+   equal on both. Its line: per method seconds, img/s, the result (mIoU
+   or accuracy), K5 launches, PNGs and overlays decoded; the loaders'
+   items/s; the trainings' losses and mIoU; the feature-summing sliding
+   forward's peak GiB and the phase's.
 9. Reloads the seeded weights and, at full resolution (1x3x1024x2048,
    nseg 2048), holds K5 against its plain version, bitwise, on the
    softmax planes of an eval forward with ~30% of superpixels selected,
@@ -218,18 +256,21 @@
    device time per step by kind of kernel and of each loss kernel, the
    top kernels and the device's idle share. Every timed run comes before these passes.
 
-Prints, at the end and in compact JSON so that the last 24 kB of the
-output hold them all, the slices' numbers (the zoo and criteria lines,
-items 8.1-8.2; the cli_recipe line, item 8b; the loader_arms line, item
-8d; the voc_recipe line, item 8c; evaluation; stage 1 at both nseg; plbl; the al_rounds line:
-per round the selection seconds, train img/s, validations, eval mIoU,
-checkpoint save and load seconds; then plbl img/s, stage-2 img/s and mIoU,
-peak memory and the card), the card's name and power limit, and one JSON
-line with each kernel's check and times (K5 six times: at plbl's
-shapes, on K6's planes, on a VOC plbl image, at the group term's
-instance, on the async weak view and over its fine map; K1-K4 twice: at Cityscapes' and VOC's stage-1 shapes), its
-launches on each main path (launches_by_path) and
-their sum (launches); the last line is
+Prints, at the end and in compact JSON (about 37 kB in all: send the
+output to a file where only a tail of it comes back), the slices'
+numbers (the zoo and criteria lines, items 8.1-8.2; the cli_recipe line,
+item 8b; the loader_arms line, item 8d; the voc_recipe line, item 8c;
+the evals line, item 8e; evaluation;
+stage 1 at both nseg; plbl; the al_rounds line: per round the selection
+seconds, train img/s, validations, eval mIoU, checkpoint save and load
+seconds; then plbl img/s, stage-2 img/s and mIoU, peak memory and the
+card), the card's name and power limit, and one JSON line with each
+kernel's check and times (K5 eight times: at plbl's shapes, on K6's
+planes, on a VOC plbl image, at the group term's instance, on the async
+weak view and over its fine map, at the sliding pseudo-labeller's and at
+the probe's instance; K1-K4 twice: at Cityscapes' and VOC's stage-1
+shapes), its launches on each main path (launches_by_path) and their sum
+(launches); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero; there is no CPU fallback.
 """
@@ -295,6 +336,16 @@ SMALL_NSEG, WEAK_HW, MSEG_LEVELS = 8192, (1024, 2048), (512, 1024, 2048)
 # LA_VAL validation images at PHxPW with the extra granularities and the
 # dominant labels; each arm cut to 1 round of LA_ITRS steps
 LA_TRAIN, LA_VAL, LA_ITRS = 8, 2, 6
+# the remaining evals over files: a tree of EV_TRAIN training and EV_VAL
+# validation images at PHxPW with dominant labels, EV_SELECT of each
+# image's superpixels labelled (a third of them in round 1); the sliding
+# window of cfg.slide_crop (800) at stride 0.6667: EV_WINDOWS windows an
+# image; the two train_al commands of the statistics loaders and
+# active_slide cut to 1 round of EV_ITRS steps
+EV_TRAIN, EV_VAL, EV_SELECT, EV_WINDOWS, EV_ITRS = 4, 2, 0.3, 8, 3
+# the small checks of the evals: SlidingEval at crop EV_CROP on an
+# EV_HW image, float32, TF32 off, within 1e-4 of the largest logit
+EV_CROP, EV_HW = 64, (96, 160)
 TIMING_RUNS, REPEATS = 20, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -848,11 +899,13 @@ def large_kernel_checks(logits, batch, dev):
                                                   pv.view(torch.int32)),
           "K5 on K6's planes differs from its plain version")
     n_k5 = int((sid2 < S).sum())
-    k5_row = (f"seg_max_fwd@K6's planes, nseg {NSEG_LARGE}",
-              (kv - pv).abs().max().item(),
-              time_ms(lambda: seg_max_fwd(planes.t(), sid2, S), graph=True),
-              time_ms(lambda: segment_max_plain(planes.t(), sid2, S)),
-              bound(P * 4 + n_k5 * row_bytes + S * C * 8, n_k5 * C), None)
+    k6_planes_row = (f"seg_max_fwd@K6's planes, nseg {NSEG_LARGE}",
+                     (kv - pv).abs().max().item(),
+                     time_ms(lambda: seg_max_fwd(planes.t(), sid2, S),
+                             graph=True),
+                     time_ms(lambda: segment_max_plain(planes.t(), sid2, S)),
+                     bound(P * 4 + n_k5 * row_bytes + S * C * 8, n_k5 * C),
+                     None)
     print(f"K5 on K6's planes: bitwise; {n_k5} of {P} pixels valid under the "
           f"retired ids", flush=True)
     del got, want, probs, planes, sid2, kv, krow, pv, prow
@@ -869,7 +922,7 @@ def large_kernel_checks(logits, batch, dev):
                  time_ms(lambda: segment.prereduce_plain(xc, sid2d, S,
                                                          temp)),
                  bound(pre_bytes(B * -(-HW // 4)), 12 * P * C), None))
-    rows.append(k5_row)
+    rows.append(k6_planes_row)
 
     # the logits as (P, C) rows, the row-major ops' layout
     x2d = logits.permute(0, 2, 3, 1).reshape(P, C).contiguous()
@@ -1369,6 +1422,30 @@ def more_regions(batches, seed):
     return out
 
 
+def k5_row(label, planes, ids, mask, nseg, dev):
+    """K5 at one instance: (P, C) planes under the host ids `ids` where
+    `mask`, nseg elsewhere; held bitwise against its plain version
+    (check_k5) and timed, with its bytes bound over the valid pixels.
+    Returns the kernels-line row."""
+    from mulactseg_tpu_torch.ops import segment_max
+
+    sid = torch.from_numpy(np.where(mask, ids, nseg).astype(
+        np.int32)).to(dev)
+    err = check_k5(planes, sid, label.partition("@")[2], nseg)
+    P, C = planes.shape
+    n_valid = int((sid < nseg).sum())
+    out = (label, err,
+           time_ms(lambda: segment_max.seg_max_fwd(planes, sid, nseg),
+                   graph=True),
+           time_ms(lambda: segment_max.segment_max_plain(planes, sid, nseg)),
+           bound(P * 4 + n_valid * C * 4 + nseg * C * 8, n_valid * C),
+           None)
+    print(f"K5 at {label.partition('@')[2]} bitwise equal to its plain "
+          f"version; {n_valid} of {P} pixels valid; {out[2]:.4f} ms "
+          f"(bound {out[4][0]:.4f})", flush=True)
+    return out
+
+
 def k5_instances(model, variables, dev, b0):
     """K5 held bitwise against its plain version and timed at the three
     instances of the criteria phase, on the first batch from the seeded
@@ -1382,24 +1459,6 @@ def k5_instances(model, variables, dev, b0):
     from mulactseg_tpu_torch.models import convert
     from mulactseg_tpu_torch.ops import segment_max
 
-    def row(label, planes, ids, mask, nseg):
-        sid = torch.from_numpy(np.where(mask, ids, nseg).astype(
-            np.int32)).to(dev)
-        err = check_k5(planes, sid, label.partition("@")[2], nseg)
-        P, C = planes.shape
-        n_valid = int((sid < nseg).sum())
-        out = (label, err,
-               time_ms(lambda: segment_max.seg_max_fwd(planes, sid, nseg),
-                       graph=True),
-               time_ms(lambda: segment_max.segment_max_plain(planes, sid,
-                                                             nseg)),
-               bound(P * 4 + n_valid * C * 4 + nseg * C * 8, n_valid * C),
-               None)
-        print(f"K5 at {label.partition('@')[2]} bitwise equal to its plain "
-              f"version; {n_valid} of {P} pixels valid; {out[2]:.4f} ms "
-              f"(bound {out[4][0]:.4f})", flush=True)
-        return out
-
     C = NUM_CLASSES
     convert.load_variables(model, variables)
     with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
@@ -1410,9 +1469,9 @@ def k5_instances(model, variables, dev, b0):
     del logits
     check(segment_max.layout(planes) == segment_max.PLANES,
           "the group term's planes do not take K5's PLANES path")
-    rows = [row("seg_max_fwd@group term, 768x768 image", planes,
-                b0["spx"][0].reshape(-1), b0["spmask"][0].reshape(-1),
-                NSEG)]
+    rows = [k5_row("seg_max_fwd@group term, 768x768 image", planes,
+                   b0["spx"][0].reshape(-1), b0["spmask"][0].reshape(-1),
+                   NSEG, dev)]
     convert.load_variables(model, variables)
     with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
         model.eval()
@@ -1424,10 +1483,11 @@ def k5_instances(model, variables, dev, b0):
     check(segment_max.layout(planes) == segment_max.PLANES,
           "the weak view's planes do not take K5's PLANES path")
     mask_w = b0["spmask_weak"][0].reshape(-1)
-    rows += [row("seg_max_fwd@async weak view, 1024x2048", planes,
-                 b0["spx_weak"][0].reshape(-1), mask_w, NSEG),
-             row("seg_max_fwd@fine map, 8192 segments", planes,
-                 b0["spx_small_weak"][0].reshape(-1), mask_w, SMALL_NSEG)]
+    rows += [k5_row("seg_max_fwd@async weak view, 1024x2048", planes,
+                    b0["spx_weak"][0].reshape(-1), mask_w, NSEG, dev),
+             k5_row("seg_max_fwd@fine map, 8192 segments", planes,
+                    b0["spx_small_weak"][0].reshape(-1), mask_w,
+                    SMALL_NSEG, dev)]
     return rows
 
 
@@ -3109,6 +3169,520 @@ def voc_recipe_slice(dev, smi, workdir):
     return line, dict(total), rows
 
 
+class _Timed:
+    """Wraps methods of classes to append (name, seconds) to `log` per
+    call, the device synchronised before the stamp; restores them on
+    exit."""
+
+    def __init__(self, dev, log, *targets):
+        self.dev, self.log, self.targets = dev, log, targets
+        self.saved = []
+
+    def __enter__(self):
+        for cls, name in self.targets:
+            real = getattr(cls, name)
+            self.saved.append((cls, name, real))
+
+            def timed(*a, _real=real, _label=f"{cls.__name__}.{name}", **k):
+                t1 = time.perf_counter()
+                out = _real(*a, **k)
+                _sync(self.dev)
+                self.log.append((_label, time.perf_counter() - t1))
+                return out
+
+            setattr(cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, real in self.saved:
+            setattr(cls, name, real)
+
+
+def small_evals_check(model, dev):
+    """The evals' device code on the card against the CPU at small shapes:
+    SlidingEval at crop EV_CROP on an EV_HW image (2 x 4 windows) with the
+    seeded model in float32, TF32 off, the summed logits within 1e-4 of
+    the largest; the four simple pseudo-labels, boundary_mask and
+    top1_selection_counts on the same logits (at 20 and 19 classes):
+    exactly equal. Returns the
+    sliding logits' largest difference over the largest logit."""
+    from mulactseg_tpu_torch.data.synthetic import irregular_superpixels
+    from mulactseg_tpu_torch.engine.analysis import top1_selection_counts
+    from mulactseg_tpu_torch.engine.sliding import SlidingEval
+    from mulactseg_tpu_torch.ops.morphology import boundary_mask
+    from mulactseg_tpu_torch.plbl import simple
+
+    rng = np.random.RandomState(31)
+    h, w = EV_HW
+    image = rng.randint(0, 256, (1, 3, h, w)).astype(np.uint8)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for d in ("cpu", dev):
+            model.to(d)
+            se = SlidingEval(model, NUM_CLASSES - 1, crop_size=EV_CROP,
+                             stride_rate=0.6667, device=d)
+            out[str(d)] = se(image).cpu()
+            check(se.windows == 8, f"{se.windows} windows at {EV_HW}")
+    finally:
+        model.to(dev)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    c, g = out["cpu"], out[str(dev)]
+    rel = ((c - g).abs().max() / c.abs().max()).item()
+    check(rel <= 1e-4, f"sliding eval: card and CPU differ by {rel} of the "
+          "largest logit")
+
+    C, S, B2 = NUM_CLASSES, 24, 2
+    logits = rng.randn(B2, C, h, w).astype(np.float32) * 3
+    spx = np.stack([irregular_superpixels(h, w, S, rng) for _ in range(B2)])
+    spmask = rng.rand(B2, h, w) < 0.6
+    targets = (rng.rand(B2, S, C) < 0.3).astype(np.float32)
+    gt = np.where(rng.rand(B2, h, w) < 0.1, 255,
+                  rng.randint(0, C - 1, (B2, h, w))).astype(np.int32)
+    plbl = np.where(spmask, rng.randint(0, C, (B2, h, w)), 255).astype(
+        np.int32)
+    res = {}
+    for d in ("cpu", dev):
+        t = [torch.from_numpy(a).to(d) for a in
+             (logits, targets, spx, spmask, gt, plbl)]
+        lg, tg, sx, sm, gtt, pl = t
+        res[str(d)] = [x.cpu() for x in (
+            simple.within_multihot_plbl(lg, tg, sx, sm),
+            simple.naive_argmax_plbl(lg, sm, num_real_classes=C - 1),
+            simple.naive_threshold_plbl(lg, sm, plbl_th=0.5),
+            simple.naive_threshold_fill(pl[0], lg[0], sm[0], temp=0.1,
+                                        plbl_th=0.9),
+            boundary_mask(sx[0]),
+            *top1_selection_counts(lg, tg, sx, sm, gtt, nseg=S,
+                                   num_classes=C),
+            # the probe's model has 19 outputs: K5's run-time-C instance
+            *top1_selection_counts(lg[:, :C - 1], tg, sx, sm, gtt, nseg=S,
+                                   num_classes=C - 1))]
+    names = ("within_multihot_plbl", "naive_argmax_plbl",
+             "naive_threshold_plbl", "naive_threshold_fill", "boundary_mask",
+             *(f"top1 ({c} classes) {n}" for c in (C, C - 1)
+               for n in ("ncorr_cls", "n_cls", "ncorr", "n")))
+    for name, a, b in zip(names, res["cpu"], res[str(dev)]):
+        check(torch.equal(a, b), f"small evals: {name} differs between the "
+              "card and the CPU")
+    print(f"small evals: sliding logits within {rel:.2e} of the largest; "
+          "simple pseudo-labels, boundary_mask and the probe's counts "
+          "equal on the card and the CPU", flush=True)
+    return rel
+
+
+def evals_slice(variables, dev, smi, workdir):
+    """The remaining evals over files (docstring, item 8e): a tree with
+    dominant labels, a checkpoint of the seeded recipe model and one of a
+    seeded 19-class model, round-1 and round-2 datalists of the labelled
+    set; K5 held and timed at the sliding pseudo-labeller's and the
+    probe's instances; then the commands through eval_al.main and
+    train_al.main, every launch counter set to 0 just before each and read
+    just after. Returns (the evals line, the path's launches, the kernels
+    rows)."""
+    from mulactseg_tpu_torch.cli import eval_al, train_al
+    from mulactseg_tpu_torch.cli.common import build_active_datasets
+    from mulactseg_tpu_torch.config import parse_config
+    from mulactseg_tpu_torch.data import datasets
+    from mulactseg_tpu_torch.data.loader import DataProvider, collate
+    from mulactseg_tpu_torch.engine.analysis import (
+        ANALYSIS_METHODS,
+        AnalysisEvaluator,
+        SelectionAccuracyEvaluator,
+    )
+    from mulactseg_tpu_torch.engine.checkpoint import save_checkpoint
+    from mulactseg_tpu_torch.engine.evaluate import Evaluator, eval_forward
+    from mulactseg_tpu_torch.engine.sliding import SlidingEval, _window_grid
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.models.factory import get_model
+    from mulactseg_tpu_torch.ops import _build
+    from mulactseg_tpu_torch.plbl.generator import (
+        PseudoLabelGenerator,
+        plbl_save_dir,
+    )
+    from mulactseg_tpu_torch.tools.cityscapes_tree import write_tree
+    from mulactseg_tpu_torch.utils.png import read_gray8, read_rgb8
+
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "data")
+    dl_dir = write_tree(root, EV_TRAIN, EV_VAL, PH, PW, NSEG, seed=5,
+                        encoding="adaptive", processes=os.cpu_count() or 1,
+                        dominant=True)
+    tree_s = time.perf_counter() - t0
+    run = os.path.join(workdir, "evals")
+    os.makedirs(run)
+    ck, ck19 = (os.path.join(run, n) for n in ("checkpoint02",
+                                               "checkpoint02_c19"))
+    model = get_model("deeplabv3pluswn_resnet50deepstem", NUM_CLASSES, 16,
+                      separable_conv=True, device="cpu")
+    convert.load_variables(model, variables)
+    save_checkpoint(ck, model)
+    # the probe and the _voc methods build num_classes outputs
+    m19 = get_model("deeplabv3pluswn_resnet50deepstem", NUM_CLASSES - 1, 16,
+                    separable_conv=True, device="cpu")
+    convert.load_variables(m19, convert.random_variables(m19, seed=0))
+    save_checkpoint(ck19, m19)
+    del model
+    with open(os.path.join(dl_dir, f"train_seed{NSEG}.txt")) as f:
+        rows = [[os.path.join(root, p) for p in line.split("\t")]
+                for line in f.read().splitlines()]
+    rng = np.random.RandomState(6)
+    sel = {r[2]: sorted(rng.choice(NSEG, int(EV_SELECT * NSEG),
+                                   replace=False).tolist()) for r in rows}
+    for rnd, suppix in ((1, {k: v[:len(v) // 3] for k, v in sel.items()}),
+                        (2, sel)):
+        with open(os.path.join(run, f"datalist_{rnd:02d}.json"), "w") as f:
+            json.dump({"trg_label_im_idx": rows, "trg_pool_im_idx": [],
+                       "trg_label_suppix": suppix, "trg_pool_suppix": {}}, f)
+    workers = min(8, os.cpu_count() or 1)
+    common = ["-p", run, "--data_root", root, "--datalist_dir", dl_dir,
+              "--dataset", "cityscapes", "--num_classes",
+              str(NUM_CLASSES - 1), "--nseg", str(NSEG), "--separable_conv",
+              "--dtype", "bfloat16", "--num_workers", str(workers),
+              "--val_num_workers", str(workers), "--init_iteration", "2",
+              "--datalist_path", os.path.join(run, "datalist_02.json"),
+              "--stage2", "--or_labeling", "--loader",
+              "eval_region_cityscapes_all",
+              "--trim_multihot_boundary", "--trim_kernel_size", "5",
+              "--dontlog"]
+
+    def argv(method, *extra, ckpt=ck):
+        return common + ["--init_checkpoint", ckpt, "--resume_checkpoint",
+                         ckpt, "--method", method, *extra]
+
+    cfg = parse_config(argv("eval_save_cosplbl_prop"))
+    label = build_active_datasets(cfg)[0]
+    label.load_datalist(cfg.datalist_path)
+    label = label.trg_label_dataset
+    eval_all = datasets.EvalRegionDatasetAll(cfg, label, label.suppix,
+                                             emit_u8=True)
+    n_img = len(eval_all)
+    model = get_model(cfg.model, NUM_CLASSES, 16, separable_conv=True,
+                      device=dev)
+    convert.load_variables(model, variables)
+
+    # K5 at the sliding pseudo-labeller's instance: one image's softmax of
+    # the window-summed logits under its labelled superpixels' ids
+    item = eval_all[0]
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    feat, logits = SlidingEval(model, NUM_CLASSES - 1, return_feat=True,
+                               device=dev, autocast=True)(
+        item["images"][None])
+    _sync(dev)
+    slide_feat_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    planes = torch.softmax(logits[0], dim=0).reshape(NUM_CLASSES, -1).t()
+    del feat, logits
+    rows_k5 = [k5_row("seg_max_fwd@slide_plbl, 1024x2048 sliding sums",
+                      planes, item["spx"].reshape(-1),
+                      item["spmask"].reshape(-1), NSEG, dev)]
+    # ... and at the probe's: one 768x768 crop's softmax (T = 1) over the
+    # 19 outputs of the model it evaluates (K5's run-time-C instance)
+    # under its spmask ids (the labelled set's train items)
+    label.load_gt = True
+    crop = label[0]
+    m19.to(dev)
+    logits = eval_forward(m19, crop["images"][None], dev, True)
+    planes = torch.softmax(logits[0].float(), dim=0).reshape(
+        NUM_CLASSES - 1, -1).t()
+    del logits, m19
+    rows_k5.append(k5_row("seg_max_fwd@probe, 768x768 crop, 19 classes",
+                          planes,
+                          crop["spx"].reshape(-1), crop["spmask"].reshape(-1),
+                          NSEG, dev))
+    del planes
+    label.load_gt = False
+
+    # the commands: (name, main, argv, K5 launches)
+    cos_plbl = {"cosprop_includeonehot_slide":
+                ("eval_save_cosplbl_prop_includeonehot_slide",),
+                "cosprop_plusonehot": ("eval_save_cosplbl_prop_plusonehot",
+                                       "--save_vis"),
+                "cos_naiveprop": ("eval_save_cosplbl_naiveprop",
+                                  "--plbl_th", "0.5")}
+    simple_plbl = {"naive_argmax": ("eval_save_naiveplbl", "--plbl_type",
+                                    "naive_argmax"),
+                   "naive": ("eval_save_naiveplbl",),
+                   "within_multihot": ("eval_save_candidateplbl",
+                                       "--plbl_type", "within_multihot"),
+                   "candidate": ("eval_save_candidateplbl",),
+                   "candidate_prop": ("eval_save_candidateplbl_prop",
+                                      "--plbl_th", "0.5")}
+    windows = len(_window_grid(PH, PW, cfg.slide_crop,
+                               cfg.slide_stride_rate)[2])
+    check(windows == EV_WINDOWS, f"{windows} sliding windows an image")
+    commands = [("eval_naive_sliding", eval_al.main,
+                 argv("eval_naive", "--sliding_eval"), 0)]
+    commands += [(t, eval_al.main, argv(*a), n_img)
+                 for t, a in cos_plbl.items()]
+    commands += [(t, eval_al.main, argv(*a), 0)
+                 for t, a in simple_plbl.items()]
+    # the JAX CLI runs neither of these on a Cityscapes tree: its loader
+    # gives eval_all_dominant the multi-hot 'target' (ROADMAP.md, question
+    # 7) and a _voc method a 19-output model, whose candidate mask has 20
+    # columns; both run at the evaluator level below
+    at_evaluator = ("eval_all_dominant", "eval_within_multihot_voc")
+    analysis = [m for m in ANALYSIS_METHODS if m not in at_evaluator]
+    for m in analysis:
+        plbl = ANALYSIS_METHODS[m].get("plbl", "")
+        n = EV_VAL if ANALYSIS_METHODS[m].get("pred") == "argmax" \
+            else n_img
+        commands.append((m, eval_al.main, argv(m),
+                         n if plbl.startswith("cos") else 0))
+    commands.append(("active_joint_multi_analysis", eval_al.main,
+                     argv("active_joint_multi_analysis", ckpt=ck19),
+                     n_img))
+    log = []
+    with _Timed(dev, log, (Evaluator, "run"), (AnalysisEvaluator, "run"),
+                (SelectionAccuracyEvaluator, "run")):
+        wall, launches, results, _, plbl_s, peak_gib = run_commands(
+            dev, [c[:3] for c in commands])
+    for name, _, _, k5 in commands:
+        want = {"seg_max_fwd": k5} if k5 else {}
+        check(launches[name] == want, f"evals: {name} launched "
+              f"{launches[name]}, want {want}")
+        check(math.isfinite(results[name]), f"evals: {name} gave "
+              f"{results[name]}")
+    check(len(log) == len(commands) - len(cos_plbl) - len(simple_plbl),
+          f"evals: evaluator runs {log}")
+    run_s = iter(s for _, s in log)
+    out = {}
+    for name, _, a, _ in commands:
+        rec = {"command_s": wall[name], "result": results[name],
+               "k5_launches": launches[name].get("seg_max_fwd", 0)}
+        if name in cos_plbl or name in simple_plbl:
+            s = plbl_s.pop(0)
+            d = plbl_save_dir(ck, name, "02")
+            pngs = sorted(os.listdir(d))
+            check(len(pngs) == n_img and all(
+                read_gray8(os.path.join(d, p)).shape == (PH, PW)
+                for p in pngs), f"evals: {name} wrote {pngs}")
+            rec.update(s=s, img_per_s=n_img / s, pngs_decoded=len(pngs))
+            if "--save_vis" in a:
+                vis = sorted(os.listdir(d + "_vis"))
+                for p in vis:
+                    rgb = read_rgb8(os.path.join(d + "_vis", p))
+                    check(rgb.shape == (PH, PW, 3) and
+                          bool((rgb == (255, 255, 0)).all(-1).any()),
+                          f"evals: bad overlay {p}")
+                check(len(vis) == n_img, f"evals: {name} overlays {vis}")
+                rec["overlays_decoded"] = len(vis)
+        else:
+            s = next(run_s)
+            n = (EV_VAL if name in ("eval_naive_sliding", "eval_naive_vis")
+                 else n_img)
+            rec.update(s=s, img_per_s=n / s)
+            vis_dir = os.path.join(run, f"vis_{name}_02")
+            if os.path.isdir(vis_dir):
+                vis = sorted(os.listdir(vis_dir))
+                # eval_naive_vis's are the validation transform's size
+                check(len(vis) == n and all(
+                    read_rgb8(os.path.join(vis_dir, p)).shape[2] == 3
+                    for p in vis), f"evals: {name} overlays {vis}")
+                rec["overlays_decoded"] = len(vis)
+        if name == "eval_naive_sliding":
+            rec["windows_per_image"] = windows
+        out[name] = rec
+        print(f"evals {name}: {json.dumps(rec)}", flush=True)
+
+    # the sliding forward warm beside the direct one, on the validation
+    # images in memory, batched as the command's loader batches them (the
+    # command's run above includes the workers' start and the first
+    # shapes; other window batches would round the bf16 forward
+    # otherwise)
+    val_ds = build_active_datasets(cfg)[1]
+    items = [val_ds[i] for i in range(len(val_ds))]
+    bs = cfg.val_batch_size
+    vb = [collate(items[i:i + bs]) for i in range(0, len(items), bs)]
+    del items
+    warm = {}
+    for arm, flags in (("sliding", ("--sliding_eval",)), ("direct", ())):
+        ev = Evaluator(model, parse_config(argv("eval_naive", *flags)),
+                       device=dev)
+        ev.run(None, vb)
+        _sync(dev)
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        miou, _ = ev.run(None, vb)
+        _sync(dev)
+        warm[arm] = {"img_per_s": EV_VAL / (time.perf_counter() - t1),
+                     "miou": miou, "peak_mem_gib":
+                     torch.cuda.max_memory_allocated() / 2 ** 30}
+    check(abs(warm["sliding"]["miou"] - results["eval_naive_sliding"])
+          < 1e-9, f"evals: warm sliding mIoU {warm['sliding']['miou']}, "
+          f"the command's {results['eval_naive_sliding']}")
+    out["eval_naive_sliding"]["warm"] = warm
+    del vb
+
+    # the dominant-map readers at the generator and evaluator level, on
+    # the label set's items with 'target' the dominant labels of the
+    # selected superpixels (255 elsewhere), and the _voc method
+    batches = []
+    for i in range(n_img):
+        it = eval_all[i]
+        dom = datasets.open_label(os.path.join(
+            root, f"superpixel_seed/cityscapes/seeds_{NSEG}/train/"
+            "gtFine_dominant", os.path.basename(it["fnames"][1]).replace(
+                "_gtFine_labelIds", "")))
+        batches.append({**{k: (v[None] if k != "fnames" else [v])
+                           for k, v in it.items()},
+                        "dominant": np.where(it["spmask"], dom, 255)[None]})
+    for ptype in ("cosprop_onehot", "cosprop_onehotignore"):
+        gen = PseudoLabelGenerator(model, cfg, ptype, device=dev)
+        _sync(dev)
+        _build.reset_launches()
+        t1 = time.perf_counter()
+        res = gen.generate(None, [{**b, "target": b["dominant"]}
+                                  for b in batches],
+                           save_dir=os.path.join(run, ptype),
+                           suppix=label.suppix)
+        _sync(dev)
+        s = time.perf_counter() - t1
+        got = dict(_build.LAUNCHES)
+        check(got == {"seg_max_fwd": n_img} and math.isfinite(res[0]),
+              f"evals: {ptype} launched {got}, mIoU {res[0]}")
+        launches[ptype] = got
+        out[ptype] = {"level": "generator", "s": s, "img_per_s": n_img / s,
+                      "result": res[0], "k5_launches": n_img,
+                      "pngs_decoded": sum(
+                          read_gray8(os.path.join(run, ptype, p)).shape ==
+                          (PH, PW) for p in os.listdir(
+                              os.path.join(run, ptype)))}
+    for m in at_evaluator:
+        cfg_m = parse_config(argv(m))
+        ev = AnalysisEvaluator(model, cfg_m, m, device=dev)
+        _sync(dev)
+        _build.reset_launches()
+        t1 = time.perf_counter()
+        res = ev.run(None, [{**b, "target": b["dominant"]} if
+                            m == "eval_all_dominant" else b
+                            for b in batches], suppix=label.suppix)
+        _sync(dev)
+        s = time.perf_counter() - t1
+        got = dict(_build.LAUNCHES)
+        check(got == {} and math.isfinite(res["miou"]),
+              f"evals: {m} launched {got}, mIoU {res['miou']}")
+        launches[m] = got
+        out[m] = {"level": "evaluator", "s": s, "img_per_s": n_img / s,
+                  "result": res["miou"], "k5_launches": 0}
+    del batches, model
+    torch.cuda.empty_cache()
+
+    # the statistics loaders: items/s over the labelled set, one pass on
+    # worker processes, each item's keys checked
+    stats = {}
+    want_keys = {
+        "count_all": {"sup_size_bin": np.int64, "num_class_bin": np.int64},
+        "visualize_minor": {"superpixel": np.int32, "target": np.int32},
+        "dom_w_gt": {"images": np.float32, "target": np.int32,
+                     "labels": np.int32, "spx": np.int32, "spmask": bool},
+        "dominant_sample": {"images": np.float32, "labels": np.int32,
+                            "spx": np.int32}}
+    for loader, mode in (("count_all", "count_all"),
+                         ("visualize_minor", "visualize_minor"),
+                         ("dom_w_gt", "dom_w_gt"),
+                         ("dominant_all_sample", "dominant_sample")):
+        c = parse_config(common + ["--loader",
+                                   f"region_cityscapes_or_tensor_{loader}",
+                                   "--method", "active_predignore"])
+        active = build_active_datasets(c)[0]
+        active.load_datalist(c.datalist_path)
+        ds = active.trg_label_dataset
+        check(type(ds).__name__ == "RegionStatsDataset" and ds.mode == mode,
+              f"evals: loader {loader} built {type(ds).__name__}")
+        item = ds[0]
+        for k, dt in want_keys[mode].items():
+            check(np.asarray(item[k]).dtype == dt, f"evals: {loader} item "
+                  f"{k} is {np.asarray(item[k]).dtype}, want {dt}")
+        shape = (c.nseg, c.num_classes + 1)
+        if mode == "visualize_minor":
+            check(item["superpixel_info"][0].shape == shape and
+                  item["superpixel"].shape == (PH, PW), f"evals: {loader}")
+        elif mode == "count_all":
+            check(item["num_class_bin"].shape == (c.nseg,), "count_all")
+        else:
+            check(item["images"].shape == (3,) + tuple(c.crop_size),
+                  f"evals: {loader} crop {item['images'].shape}")
+        t1 = time.perf_counter()
+        loader_ = DataProvider(ds, 1, shuffle=False, drop_last=False,
+                               infinite=False, num_workers=workers)
+        n = sum(1 for _ in loader_)
+        loader_.close()
+        stats[loader] = {"mode": mode,
+                         "items_per_s": n / (time.perf_counter() - t1)}
+
+    # training through the statistics loaders and active_slide: the
+    # recipe's stage-1 command cut to 1 round of EV_ITRS steps
+    cmds = recipe_commands("train_city_mul_res50.sh", workdir, root)
+    base = recipe_cut(cmds[0], workdir, dl_dir, {
+        "--finetune_itrs": EV_ITRS, "--val_period": EV_ITRS,
+        "--max_iterations": 1,
+        "--active_selection_size": round(EV_TRAIN * 100_000 / 2_975)})
+    init = base[base.index("--init_checkpoint") + 1]
+    m = get_model("deeplabv3pluswn_resnet50deepstem", NUM_CLASSES, 16,
+                  separable_conv=True, device="cpu")
+    convert.load_variables(m, variables)
+    save_checkpoint(init, m)  # the seeded stand-in of the ImageNet init
+    del m
+    dominant = {"--or_labeling": "false", "--dominant_labeling": "true",
+                "--trg_datalist": os.path.join(
+                    dl_dir, f"train_seed{NSEG}_dominant_labels.txt")}
+    trains_cmds = [
+        ("train_dom_w_gt", {**dominant, "--method": "active_predignore",
+                            "--loader": "region_cityscapes_dom_w_gt"}),
+        # named with or_labeling unset, as the reference's Dominant
+        # scripts do (the Or arm's selection reads multi-hot counts the
+        # statistics loaders do not carry, in JAX as here); the precise
+        # GT's datalist, each drawn label from its counts
+        ("train_dominant_all_sample", {
+            "--or_labeling": "false", "--method": "active_predignore",
+            "--loader": "region_cityscapes_dominant_all_sample"}),
+        ("train_active_slide", {**dominant, "--method": "active_slide",
+                                "--loader": "region_cityscapes",
+                                "--sliding_eval": "true"})]
+    tcommands = [(name, train_al.main, with_flags(base, {
+        "-p": os.path.join(workdir, name), **flags}))
+        for name, flags in trains_cmds]
+    log.clear()
+    with _Timed(dev, log, (Evaluator, "run")):
+        twall, tlaunches, tresults, trains, _, tpeak = run_commands(
+            dev, tcommands)
+    for (name, _, _), rec in zip(tcommands, trains):
+        check(tlaunches[name] == {} and len(rec["losses"]) == EV_ITRS and
+              all(map(math.isfinite, rec["losses"])) and
+              len(rec["validations"]) == 1 and
+              all(map(math.isfinite, tresults[name].values())),
+              f"evals: {name} launched {tlaunches[name]}, losses "
+              f"{rec['losses']}, validations {rec['validations']}, mIoU "
+              f"{tresults[name]}")
+        out[name] = {"command_s": twall[name], "train_img_per_s":
+                     rec["img_per_s"], "losses": rec["losses"],
+                     "eval_miou": tresults[name][1]}
+    sl = [s for n, s in log]
+    out["train_active_slide"]["sliding_validation_s"] = sl[-1]
+    launches.update(tlaunches)
+
+    line = {"evals": {
+        "card": smi, "config": f"deeplabv3pluswn_resnet50deepstem "
+        f"separable, {NUM_CLASSES} outputs (19 for the probe and the _voc "
+        f"method), bf16, nseg {NSEG}; tree: {EV_TRAIN} train and {EV_VAL} "
+        f"val images at {PH}x{PW}, dominant labels, {EV_SELECT:.0%} of each "
+        f"image's superpixels labelled; sliding crop {cfg.slide_crop}, "
+        f"stride {cfg.slide_stride_rate}",
+        "tree_s": tree_s, "methods": out, "stats_loaders": stats,
+        "sliding_feature_sum_peak_gib": slide_feat_peak_gib,
+        "peak_mem_gib": max(peak_gib, tpeak),
+        "launches": {k: v for k, v in launches.items() if v}}}
+    total = Counter()
+    for v in launches.values():
+        total.update(v)
+    return line, dict(total), rows_k5
+
+
 def small_selector_check(dev, variables):
     """The paper's selector on the card against the CPU: the full-width
     model with the seeded weights in float32 (TF32 off) on two 96x80
@@ -3306,6 +3880,16 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         voc_line, voc_launches, voc_rows = voc_recipe_slice(dev, smi, tmp)
     shutdown_workers()
+    # the remaining evals over a tree with dominant labels, their K5
+    # instances held first, then the small card-against-CPU checks
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        evals_line, evals_launches, evals_rows = evals_slice(
+            variables, dev, smi, tmp)
+    shutdown_workers()
+    convert.load_variables(model, variables)
+    evals_line["evals"]["small_sliding_rel_err"] = small_evals_check(model,
+                                                                     dev)
 
     # evaluation and pseudo-labelling at 1024x2048, from the seeded weights
     # again (BN in eval mode reads the running statistics)
@@ -3323,23 +3907,23 @@ def main():
         gen = torch.Generator(dev).manual_seed(0)
         profile_steps(make_train_step(model, c, device=dev, generator=gen), b,
                       f"stage-1, nseg {c.nseg}")
-    rows += large_rows + voc_rows + crit_rows
+    rows += large_rows + voc_rows + crit_rows + evals_rows
     # each kernel's launches on each main path that runs it, and their sum
     by_path = {f"stage1_nseg{NSEG}": stage1_launches,
                f"stage1_nseg{NSEG_LARGE}": large_launches,
                "plbl": plbl_launches, "row_ops": row_launches,
                "al_rounds": al_launches, "cli_recipe": cli_launches,
                "voc": voc_launches, "zoo": zoo_launches,
-               "criteria": crit_launches, "loader_arms": arms_launches}
+               "criteria": crit_launches, "loader_arms": arms_launches,
+               "evals": evals_launches}
     launches = sum((Counter(n) for n in by_path.values()), Counter())
     check(all(launches[name] > 0 for name in KERNELS),
           f"a kernel was never launched on a main path: {dict(launches)}")
 
-    # every slice's line at the end, so the last 24 kB of the output hold
-    # them all
+    # every slice's line at the end, the kernels line and the card last
     compact = {"separators": (",", ":")}
     for line in (zoo_line, crit_line, cli_line, arms_line, voc_line,
-                 eval_stats):
+                 evals_line, eval_stats):
         print(json.dumps(line, **compact))
     print(json.dumps({
         "slice": "cityscapes stage-1 train step", "card": smi,

@@ -9,9 +9,9 @@ VOC's region_voc_or_tensor, the research multi-hot rewrites, or_plbl,
 oracle and woignore, async and asyncv2, and the finer superpixel map the
 hierarchy and mseg methods force); the dominant-labelling arm
 (--no-or-labeling); the mixed-scale mseg loaders; SYNTHIA's validation
-labels. The analysis loaders of the JAX package's data/stats.py
-(count_all, visualize_minor, dom_w_gt, dominant_all_sample) serve only
-the analysis evals and raise, naming ROADMAP.md queue A, item 15.
+labels; and the statistics loaders of data/stats.py (count_all,
+visualize_minor, dom_w_gt, dominant_all_sample), which wrap the labelled
+set of whichever arm the flags pick (_wrap_stats, :134-146).
 """
 
 from __future__ import annotations
@@ -30,6 +30,10 @@ from mulactseg_tpu_torch.data.datasets import (
     encode_synthia,
     open_label_synthia,
 )
+from mulactseg_tpu_torch.data.stats import (
+    RegionStatsDataset,
+    stats_mode_for_loader,
+)
 from mulactseg_tpu_torch.data.synthetic import SyntheticRegionDataset
 from mulactseg_tpu_torch.data.transforms import (
     PairedTransform,
@@ -38,10 +42,6 @@ from mulactseg_tpu_torch.data.transforms import (
 )
 from mulactseg_tpu_torch.utils.logging import MetricsSink, get_file_logger
 
-# loader-name fragments of the analysis loaders (the JAX package's
-# data/stats.py LOADER_MODES)
-_STATS_LOADERS = ("count_all", "visualize_minor", "dom_w_gt",
-                  "dominant_all_sample")
 # the research rewrites, in the JAX package's order of precedence
 _MULTIHOT_REWRITES = ("tinyfilter_recommend", "tinyfilter", "ratiofilter",
                       "ratiosample", "dominantsample", "toponebase")
@@ -77,12 +77,11 @@ def build_active_datasets(cfg):
     loader = cfg.loader
     if loader.startswith("mseg"):
         return _build_mseg_datasets(cfg, encode)
-    if any(f in loader for f in _STATS_LOADERS):
-        raise NotImplementedError(
-            f"loader {loader!r}: the analysis loaders (data/stats.py) are "
-            "not ported yet: ROADMAP.md queue A, item 15")
+    # the statistics loaders are named with or_labeling unset too (the
+    # reference's figure-7 Dominant scripts), so they wrap either arm
+    stats_mode = stats_mode_for_loader(loader)
     if not cfg.or_labeling:
-        return _build_dominant_datasets(cfg, encode)
+        return _build_dominant_datasets(cfg, encode, stats_mode)
 
     tf_name = cfg.train_transform
     # the loaders whose item carries the GT or the pseudo-label map before
@@ -128,15 +127,29 @@ def build_active_datasets(cfg):
                            multi_hot_cls=label.multi_hot_cls)
     label.suppix = {}
     label.im_idx = []
+    if stats_mode is not None:
+        label = _wrap_stats(cfg, label, stats_mode)
     return RegionActiveSet(cfg, pool, label), _build_val_dataset(cfg, encode)
 
 
-def _build_dominant_datasets(cfg, encode):
+def _wrap_stats(cfg, label, stats_mode):
+    """The statistics loader of `stats_mode` over the arm's labelled set;
+    its checkpoint predicts ignore when the resume checkpoint's path or
+    the method names predignore."""
+    return RegionStatsDataset(
+        cfg, label, stats_mode,
+        pred_ignore="predignore" in (cfg.resume_checkpoint or "")
+        or "predignore" in cfg.method,
+        seed=cfg.seed)
+
+
+def _build_dominant_datasets(cfg, encode, stats_mode=None):
     """The dominant-labelling arm (--no-or-labeling; the reference's
     non-Or branch, dataloader/__init__.py:143-145): RegionDatasetDominant
     over the gtFine_dominant* PNGs that tools/label_assignment writes,
     with predignore, withgt and oracle (full supervision) from the loader
-    name and the method."""
+    name and the method, its labelled set wrapped by a statistics loader
+    where stats_mode names one."""
     from mulactseg_tpu_torch.data.datasets import RegionDatasetDominant
 
     with_gt = "withgt" in cfg.loader
@@ -153,6 +166,8 @@ def _build_dominant_datasets(cfg, encode):
     pool = RegionDatasetDominant(
         cfg, cfg.trg_datalist, cfg.region_dict, split="active-ulabel",
         transform=None, encode_fn=encode)
+    if stats_mode is not None:
+        label = _wrap_stats(cfg, label, stats_mode)
     return RegionActiveSet(cfg, pool, label), _build_val_dataset(cfg, encode)
 
 

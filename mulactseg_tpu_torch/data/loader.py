@@ -126,7 +126,14 @@ def _collate_shared(samples: List[Dict]) -> Dict:
     freed (the views die with the call's argument list, before)."""
     blocks = []
     try:
-        return collate([_attach(s, blocks) for s in samples])
+        out = collate([_attach(s, blocks) for s in samples])
+        # an array that collate lists (a statistics item's 'superpixel')
+        # may be a view of a block: copied before the block goes
+        for k, v in out.items():
+            if isinstance(v, list):
+                out[k] = [np.array(x) if isinstance(x, np.ndarray) else x
+                          for x in v]
+        return out
     finally:
         for shm in blocks:
             shm.close()

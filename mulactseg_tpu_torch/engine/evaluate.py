@@ -1,12 +1,14 @@
 """Evaluation loop with streaming mIoU: the port of
 mulactseg_tpu/engine/evaluate.py.
 
-Covers plain argmax eval (trainer/base.py:138-175) and predignore eval,
+Covers plain argmax eval (trainer/base.py:138-175), predignore eval,
 which reports mIoU over the C real classes plus a separate IoU of the
 undefined class against GT-ignore (trainer/active_joint_multi_predignore.py:
-175-216). The forward runs in eval mode, under bfloat16 autocast on the
-card when cfg.dtype == "bfloat16", as the train step does; uint8 images
-are normalised on the device.
+175-216), and sliding-window eval (cfg.sliding_eval, engine/sliding.py;
+trainer/eval_slide.py:17-88), which sums the first C channels over the
+crop grid and so takes no predignore. The forward runs in eval mode,
+under bfloat16 autocast on the card when cfg.dtype == "bfloat16", as the
+train step does; uint8 images are normalised on the device.
 """
 
 from __future__ import annotations
@@ -36,14 +38,18 @@ def eval_forward(model, images, dev, autocast: bool, **kw):
 
 class Evaluator:
     def __init__(self, model: torch.nn.Module, cfg, device="cuda"):
-        if cfg.sliding_eval:
-            raise NotImplementedError(
-                "sliding-window eval (engine/sliding.py) is not ported yet: "
-                "ROADMAP.md queue A, item 15")
         self.model = model
         self.cfg = cfg
         self.dev = resolve_device(device)
         self.autocast = self.dev.type == "cuda" and cfg.dtype == "bfloat16"
+        self.sliding = None
+        if cfg.sliding_eval:
+            from mulactseg_tpu_torch.engine.sliding import SlidingEval
+
+            self.sliding = SlidingEval(
+                model, cfg.num_classes, crop_size=cfg.slide_crop,
+                stride_rate=cfg.slide_stride_rate, device=self.dev,
+                autocast=self.autocast)
 
     def run(self, model_state, loader: Iterable, *,
             predignore: Optional[bool] = None, mesh=None):
@@ -60,12 +66,17 @@ class Evaluator:
             self.model.load_state_dict(model_state)
         if predignore is None:
             predignore = "predignore" in cfg.method
+        if self.sliding is not None:
+            predignore = False  # the sliding sums hold the C classes only
         iou = MeanIoU(cfg.num_classes, cfg.ignore_idx)
         ign = IoUIgnore(cfg.num_classes, cfg.ignore_idx) if predignore \
             else None
         for batch in loader:
-            logits = eval_forward(self.model, batch["images"], self.dev,
-                                  self.autocast)
+            if self.sliding is not None:
+                logits = self.sliding(batch["images"])
+            else:
+                logits = eval_forward(self.model, batch["images"], self.dev,
+                                      self.autocast)
             labels = torch.as_tensor(batch["labels"]).to(self.dev)
             if predignore:
                 iou._after_step({"outputs": logits[:, :-1].argmax(1),

@@ -40,7 +40,6 @@ from mulactseg_tpu_torch.engine.evaluate import Evaluator
 from mulactseg_tpu_torch.engine.state import make_optimizer
 from mulactseg_tpu_torch.engine.train import (
     CRITERIA,
-    PENDING,
     make_eval_step,
     make_train_step,
 )
@@ -83,7 +82,7 @@ class ALTrainer:
             self.model, cfg, self.dev,
             generator=torch.Generator(self.dev).manual_seed(cfg.seed),
             optimizer=self.optimizer)
-            if cfg.method in CRITERIA or cfg.method in PENDING else None)
+            if cfg.method in CRITERIA else None)
         self._step = 0
         self.eval_step = make_eval_step(self.model, cfg, self.dev)
         self.evaluator = Evaluator(self.model, cfg, device=self.dev)

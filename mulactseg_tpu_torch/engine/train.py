@@ -1,15 +1,15 @@
 """Training and eval steps: the port of mulactseg_tpu/engine/train.py.
 
-The criteria are the JAX package's CRITERIA (train.py:491-543) but
-active_slide, which needs the sliding forward of ROADMAP.md queue A, item
-15 (PENDING), in the same order: the fused lossdecomp of stage 1
+The criteria are the JAX package's CRITERIA (train.py:491-543), all 32,
+in the same order: the fused lossdecomp of stage 1
 (active_joint_multi_predignore_lossdecomp on Cityscapes' C+1-class model,
 active_joint_multi_lossdecomp on VOC's 21-class one; the unfused
 lossdecomp for a batch without target bits), the joint group + MC
 criteria and their ablations, the online pseudo-label family, pwce,
 top1plbl, wgroup, the two-scale hierarchy family, the mixed-scale mseg
 criterion, sequence, and the plain temperature CE of stage 2
-(active_predignore; active on VOC). NaN guards mirror
+(active_predignore; active on VOC; active_slide, whose sliding window
+is its validation's, cfg.sliding_eval). NaN guards mirror
 trainer/active_joint_multi.py:17-29 (zero_if_nan per component).
 
 One eager step per call: forward (BN in train mode, conv stack under
@@ -465,6 +465,7 @@ CRITERIA: Dict[str, Callable] = {
     "active_joint_multi_predignore_mclossablation2": _mclossablation2_loss,
     "active_predignore": _ce_loss,
     "active": _ce_loss,
+    "active_slide": _ce_loss,
     "active_onlineplbl_multi_predignore": _online_plbl_loss,
     "active_onlinewplbl_multi_predignore": lambda cfg: _online_plbl_loss(
         cfg, weighted=True, weight_source="prob"),
@@ -507,16 +508,7 @@ CRITERIA: Dict[str, Callable] = {
     "active_joint_multi_predignore_logprecision": lambda cfg: _joint_loss(
         cfg, False),
 }
-# the JAX package's other criterion: active_slide trains with plain CE
-# through the sliding-window forward, ROADMAP.md queue A, item 15
-PENDING = ("active_slide",)
-
-
 def get_criterion(cfg):
-    if cfg.method in PENDING:
-        raise NotImplementedError(
-            f"method {cfg.method!r} (the sliding-window forward) is not "
-            "ported yet: ROADMAP.md queue A, item 15")
     if cfg.method not in CRITERIA:
         raise KeyError(
             f"method {cfg.method!r} has no registered criterion; "

@@ -21,8 +21,9 @@ processes.
 
 Also: every command of the port's two recipe scripts parses, and its
 Config equals the JAX parse of the JAX script's command field by field
-(steps_per_dispatch apart); the loader branches left to a later item
-raise naming it.
+(steps_per_dispatch apart); every loader branch builds, the statistics
+loaders too, and an analysis eval without a validation set stops as the
+JAX CLI does.
 """
 
 import dataclasses
@@ -225,9 +226,11 @@ def test_recipe_scripts_parse_to_the_jax_configs(tmp_path):
 
 
 def test_loader_branches_left_to_port_raise(tmp_path):
-    """Only the analysis loaders (item 15) are left; the branches of item
-    18 build (tests/test_torch_port_loader_arms.py holds them against
-    JAX)."""
+    """No loader branch is left to port: the statistics loaders wrap the
+    arm's labelled set (tests/test_torch_port_stats.py holds their items
+    against JAX) and the branches of item 18 build
+    (tests/test_torch_port_loader_arms.py); eval_naive_vis, an analysis
+    eval of the validation set, stops without one."""
     root = tmp_path / "data"
     dl = write_tree(str(root), 1, 0, 16, 16, 4, seed=0, num_classes=3,
                     encoding="filter0", dataset="gta5")
@@ -239,8 +242,10 @@ def test_loader_branches_left_to_port_raise(tmp_path):
                {"or_labeling": False,
                 "loader": "region_cityscapes_dominant_all_sample"}):
         cfg = Config(**{**base, **kw}).derive_paths()
-        with pytest.raises(NotImplementedError, match="item 15"):
-            common.build_active_datasets(cfg)
+        active, _ = common.build_active_datasets(cfg)
+        assert type(active.trg_label_dataset).__name__ == \
+            "RegionStatsDataset"
+        assert len(active.trg_pool_dataset) == 1
     for kw in ({"loader": "region_cityscapes_or_tensor_tinyfilter_gt"},
                {"loader": "region_cityscapes_or_oracle"},
                {"loader": "region_cityscapes_or_tensor_ignore_async"},
@@ -249,9 +254,13 @@ def test_loader_branches_left_to_port_raise(tmp_path):
         cfg = Config(**{**base, **kw}).derive_paths()
         active, _ = common.build_active_datasets(cfg)
         assert len(active.trg_pool_dataset) == 1
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(SystemExit, match="validation datalist"):
         eval_al.main(["--method", "eval_naive_vis", "-p",
-                      str(tmp_path / "run")], device="cpu")
+                      str(tmp_path / "run"), "--data_root", str(root),
+                      "--datalist_dir", dl, "--dataset", "gta5", "--nseg",
+                      "4", "--num_classes", "3", "--model",
+                      "deeplabv3plus_mobilenet", "--dontlog"],
+                     device="cpu")
     active, val = common.build_active_datasets(
         Config(**base).derive_paths())
     assert val is None and len(active.trg_pool_dataset) == 1  # no val.txt

@@ -339,16 +339,12 @@ def test_dense_losses_and_loss_types_match_jax():
 
 
 def test_criteria_registry_follows_jax_order():
-    """31 criteria, in the JAX package's order once active_slide
-    (PENDING, item 15) is left out; it raises naming the item."""
-    assert port_train.PENDING == ("active_slide",)
-    assert len(port_train.CRITERIA) == 31
-    assert list(port_train.CRITERIA) == [
-        m for m in jax_train.CRITERIA if m not in port_train.PENDING]
-    assert set(port_train.PENDING) <= set(jax_train.CRITERIA)
-    for method in port_train.PENDING:
-        with pytest.raises(NotImplementedError, match="item 15"):
-            port_train.get_criterion(Config(method=method))
+    """All 32 criteria, in the JAX package's order, active_slide
+    among them."""
+    assert "active_slide" in port_train.CRITERIA
+    assert len(port_train.CRITERIA) == len(jax_train.CRITERIA) == 32
+    assert list(port_train.CRITERIA) == list(jax_train.CRITERIA)
+    assert callable(port_train.get_criterion(Config(method="active_slide")))
     with pytest.raises(KeyError, match="available"):
         port_train.get_criterion(Config(method="not_a_method"))
 

@@ -50,7 +50,14 @@ N(0, 0.2^2) logits also the card against the CPU as the CPU tests hold
 the port against JAX (loss within rtol 1e-5, gradient within 1e-5 of
 its largest entry). A needs_feat step (pwce, wgroup) on a small float32
 model with TF32 off gives the CPU's loss parts within rtol 1e-5 and
-launches K5 once (pwce) or twice (wgroup) an image.
+launches K5 once (pwce) or twice (wgroup) an image. The evals: K5 at a
+small instance of the top-1 selection probe (softmax planes under spmask
+ids, an absent superpixel) bitwise its plain version at 19 and 20
+classes;
+top1_selection_counts on the card equal to the CPU's (K5 once an image);
+SlidingEval on a small float32 model, TF32 off, with 2 x 4 windows and
+with one centre-padded window, the summed logits within 1e-4 of the
+largest and the renormalised features within 1e-4 of the CPU's.
 """
 
 import numpy as np
@@ -1022,3 +1029,90 @@ def test_more_criteria_on_card_match_cpu(dev, method, over, k5):
         sid = np.where(batch["spmask"], batch["spx"], nseg).reshape(B, -1)
         ties = near_tie_pixels(probs, sid, nseg).reshape(B, H, W)
         assert not bool((bad & ~ties).any())
+
+
+@pytest.mark.parametrize("C", [19, 20])
+def test_segment_max_at_the_probe_instance(dev, C):
+    """K5 as the top-1 selection probe calls it (one image's softmax
+    planes under its spmask ids, absent superpixels among them): bitwise
+    its plain version, at the probe's 19 classes (the run-time-C
+    instance) and at the compiled 20."""
+    rng = np.random.RandomState(21)
+    H, W, nseg = 96, 80, 64
+    logits = torch.from_numpy(rng.randn(C, H, W).astype(np.float32) * 3)
+    spx = irregular_superpixels(H, W, nseg, rng)
+    keep = rng.rand(H, W) < 0.5
+    keep[spx == 5] = False  # an absent superpixel
+    sid = np.where(keep, spx, nseg).reshape(-1).astype(np.int32)
+    probs = torch.softmax(logits.to(dev), dim=0).reshape(C, -1).t()
+    assert segment_max.layout(probs) == segment_max.PLANES
+    _build.reset_launches()
+    vals, pix = segment_max.seg_max_fwd(probs, torch.from_numpy(sid).to(dev),
+                                        nseg)
+    pv, pp = segment_max.segment_max_plain(probs, torch.from_numpy(sid).to(
+        dev), nseg)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"seg_max_fwd": 1}
+    assert torch.equal(pix, pp) and (pix[5] == H * W).all()
+    assert torch.equal(vals.view(torch.int32), pv.view(torch.int32))
+
+
+def test_top1_selection_counts_on_card_match_cpu(dev):
+    from mulactseg_tpu_torch.engine.analysis import top1_selection_counts
+
+    rng = np.random.RandomState(22)
+    B, C, H, W, nseg = 3, 7, 40, 48, 16
+    logits = rng.randn(B, C, H, W).astype(np.float32)
+    spx = np.stack([irregular_superpixels(H, W, nseg, rng)
+                    for _ in range(B)]).astype(np.int32)
+    spmask = rng.rand(B, H, W) < 0.7
+    spmask[2] = False  # an all-masked image
+    multihot = (rng.rand(B, nseg, C + 1) < 0.4).astype(np.float32)
+    gt = rng.randint(0, C, (B, H, W)).astype(np.int32)
+    gt[rng.rand(B, H, W) < 0.1] = 255
+    out = {}
+    for d in ("cpu", dev):
+        _build.reset_launches()
+        out[str(d)] = [t.cpu() for t in top1_selection_counts(
+            *(torch.from_numpy(a).to(d)
+              for a in (logits, multihot, spx, spmask, gt)),
+            nseg=nseg, num_classes=C)]
+        if d != "cpu":
+            assert dict(_build.LAUNCHES) == {"seg_max_fwd": B}
+    for c, g in zip(out["cpu"], out[str(dev)]):
+        assert torch.equal(c, g)
+    assert float(out["cpu"][3]) > 0
+
+
+@pytest.mark.parametrize("return_feat", [False, True])
+def test_sliding_eval_on_card_matches_cpu(dev, return_feat, monkeypatch):
+    """SlidingEval with crop 64 on a 96x160 image (2 x 4 windows) and on
+    one smaller than a crop, float32, TF32 off: the summed logits within
+    1e-4 of the largest, the renormalised features within 1e-4."""
+    from mulactseg_tpu_torch.engine.sliding import SlidingEval
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    torch.manual_seed(0)
+    model = _Tiny(7)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.3)
+    rng = np.random.RandomState(23)
+    for H, W in ((96, 160), (40, 56)):
+        images = rng.randint(0, 256, (2, 3, H, W)).astype(np.uint8)
+        out = {}
+        for d in ("cpu", dev):
+            m = _Tiny(7).to(d)
+            m.load_state_dict(model.state_dict())
+            se = SlidingEval(m, 6, crop_size=64, stride_rate=2 / 3,
+                             return_feat=return_feat, device=d)
+            got = se(images)
+            # (logits,) or (logits, features)
+            out[str(d)] = [t.cpu() for t in (got[::-1] if return_feat
+                                             else (got,))]
+            assert se.windows == (8 if H == 96 else 1)
+        for i, (c, g) in enumerate(zip(out["cpu"], out[str(dev)])):
+            assert c.shape == g.shape and g.shape[-2:] == (H, W)
+            scale = c.abs().max().item() if i == 0 else 1.0
+            assert (c - g).abs().max().item() <= 1e-4 * scale

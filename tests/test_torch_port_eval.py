@@ -148,9 +148,13 @@ def test_evaluator_loads_state_and_refuses_unported_options():
     assert Evaluator(port, cfg, device="cpu").run(sd, data) == want
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Evaluator(port, cfg, device="cpu").run(None, data, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Evaluator(port, Config(num_classes=NC - 1, sliding_eval=True),
-                  device="cpu")
+    # the sliding arm (test_torch_port_sliding.py holds it against JAX)
+    # sums the C real classes over the crop grid, so it takes no predignore
+    slide = Evaluator(port, Config(num_classes=NC - 1, sliding_eval=True,
+                                   slide_crop=24), device="cpu")
+    assert slide.sliding.crop == 24 and slide.sliding.num_classes == NC - 1
+    miou, table = slide.run(None, data, predignore=True)
+    assert np.isfinite(miou) and len(table.split(",")) == NC
 
 
 def test_feat_bf16_matches_flax():

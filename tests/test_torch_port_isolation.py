@@ -118,6 +118,38 @@ def test_round_loop_entry_points_raise_without_cuda(no_card, tmp_path):
     assert os.listdir(tmp_path) == []
 
 
+def test_eval_entry_points_raise_without_cuda(no_card, tmp_path):
+    """The sliding forward, the analysis evals, the probe and the eval CLI
+    default to the card and raise without one; on the CPU they build."""
+    from mulactseg_tpu_torch.cli import eval_al
+    from mulactseg_tpu_torch.engine.analysis import (
+        AnalysisEvaluator,
+        SelectionAccuracyEvaluator,
+    )
+    from mulactseg_tpu_torch.engine.sliding import SlidingEval
+
+    model = torch.nn.Conv2d(3, 3, 1)
+    cfg = Config(method="eval_cosplbl_within_multihot")
+    for build in (lambda **k: SlidingEval(model, 2, **k),
+                  lambda **k: AnalysisEvaluator(model, cfg, cfg.method, **k),
+                  lambda **k: AnalysisEvaluator(model, cfg, "eval_naive_vis",
+                                                **k),
+                  lambda **k: SelectionAccuracyEvaluator(model, cfg, **k),
+                  lambda **k: Evaluator(model, Config(sliding_eval=True),
+                                        **k),
+                  lambda **k: PseudoLabelGenerator(
+                      model, cfg, "cosprop_includeonehot_slide", **k),
+                  lambda **k: PseudoLabelGenerator(model, cfg, "naive",
+                                                   **k)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+        assert build(device="cpu").dev.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_al.main(["--method", "active_joint_multi_analysis", "-p",
+                      str(tmp_path / "run"), "--loader", "synthetic",
+                      "--dontlog"])
+
+
 def test_port_path_imports_no_pil():
     """The pseudo-label PNGs are written by utils/png.py: no module of the
     port imports Pillow (the machine with the card is not promised it)."""

@@ -18,8 +18,8 @@ dominant labels:
 - the SYNTHIA label reader and table on 16-bit greyscale, palette and
   8-bit RGB files, and the validation dataset the CLI builds for it;
 - build_active_datasets dispatching every loader branch as the JAX
-  package's does (the same dataset class and options); only the
-  analysis loaders raise, naming ROADMAP.md queue A, item 15.
+  package's does (the same dataset class and options), the statistics
+  loaders too (test_torch_port_stats.py holds their items).
 """
 
 import os
@@ -422,6 +422,12 @@ def test_mseg_arm_dispatches_as_jax(tree):
                                     "region_cityscapes_dom_w_gt",
                                     "region_cityscapes_dominant_all_sample"])
 def test_only_the_analysis_loaders_raise(tree, loader):
-    cfg, _ = _cfgs(tree, loader=loader, or_labeling=False)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        common.build_active_datasets(cfg)
+    """The statistics loaders, named with or_labeling unset, wrap the
+    dominant arm's labelled set as the JAX package's do."""
+    cfg, jcfg = _cfgs(tree, loader=loader, or_labeling=False)
+    got = common.build_active_datasets(cfg)[0].trg_label_dataset
+    want = jax_common.build_active_datasets(jcfg)[0].trg_label_dataset
+    assert type(got).__name__ == type(want).__name__ == "RegionStatsDataset"
+    assert type(got.base).__name__ == type(want.base).__name__ == \
+        "RegionDatasetDominant"
+    assert got.mode == want.mode and len(got) == len(want) == 0

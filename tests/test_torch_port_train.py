@@ -219,7 +219,7 @@ def test_criteria_registry():
         "active_joint_multi_lossdecomp",
         "active_joint_multi_predignore", "active_joint_multi",
         "active_joint_multi_predignore_mclossablation2",
-        "active_predignore", "active",
+        "active_predignore", "active", "active_slide",
         "active_onlineplbl_multi_predignore",
         "active_onlinewplbl_multi_predignore",
         "active_onlinesimwplbl_multi_predignore",
@@ -245,8 +245,11 @@ def test_criteria_registry():
         "active_joint_multi_predignore_logprecision"]
     with pytest.raises(KeyError, match="available"):
         get_criterion(Config(method="active_joint_multi_nonexistent"))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_criterion(Config(method="active_slide"))
+    # active_slide trains with plain CE; its sliding window is the
+    # validation's (cfg.sliding_eval)
+    slide = get_criterion(Config(method="active_slide"))
+    plain = get_criterion(Config(method="active"))
+    assert slide.keys == plain.keys
 
 
 def test_synthetic_and_bit_packer_copies_match_jax():
