@@ -122,6 +122,42 @@
    must be finite. Then the paper's selector on the card against the CPU
    on two 96x80 images in float32 with the same weights: scores within
    1e-4, the same selected regions.
+8f. Data parallelism (dp; mulactseg_tpu_torch/parallel/mesh.py), the
+   recipe model at the stage-1 shape from the seeded weights, global
+   batch 4, bf16. (a) World 1: a group of one rank under NCCL
+   (parallel.spawn) takes DP_STEPS recipe steps (AdamW) and, from the
+   seeded weights again, DP_SGD_STEPS SGD steps; the same AdamW steps run
+   twice in this process without a group. Step 0's losses must be
+   bitwise those without a group, every collective must give back its
+   input bitwise, and the steps must stay within 0.05 of the run without
+   a group. The card's step is not bitwise reproducible (atomic adds in
+   the backward: the two runs without a group differ too), so the line
+   reports how far each run strays and how many tensors differ. (b) World
+   2: two processes sharing the card (each device cuda:<i>, gloo with
+   CUDA tensors) take the DP_SGD_STEPS SGD steps, each on its two rows,
+   in float32 (TF32 off) and in bf16: against world 1, step 0's loss
+   within 1e-3 relative and the losses within 0.05, and in float32 the
+   gradient's cosine >= 0.99 and norm within 1e-2 (the JAX dryrun's
+   bounds, __graft_entry__.py:116-242, whose runs are float32); K1-K4
+   once a step on each rank. In bf16 the convolutions at 2 images a rank
+   take other cuDNN algorithms and round otherwise, and the seeded
+   model's step-0 gradient is chaotic in its input (the group term's
+   argmax: one grey level on 1% of the pixels turns it to a cosine of
+   0.02), so its gradient agreement is reported, not held. Two ranks on
+   one card measure the collectives' cost, not a speed-up. (c) One active-learning round at world 2 on the al_rounds
+   fixture from a classifier-stripped init file: the paper's selector
+   (pool scoring split by rows, val_batch_size 1), whose regions must
+   match this process's world-1 selection from the same file with
+   Jaccard >= 0.99; DP_ITRS steps (K1-K4 once a step on each rank) with
+   two validations, the best checkpoint (rank 0 writes, every rank
+   reads) back, eval split by images, whose confusion matrix must equal
+   world 1's eval of that checkpoint at batch 1 here; the recipe's
+   pseudo-labels by rank 0 (K5 once a label-set image there, none on
+   rank 1), then DP_ITRS stage-2 steps at world 2 on them (no kernel).
+   Every launch counter is reset in each rank just before its steps and
+   read just after. Its line: per world the backend, step ms, img/s, the
+   gradient bytes all-reduced a step, peak GiB per rank, the deviations;
+   the round's Jaccard, seconds, mIoUs, launches per rank.
 8b. The recipe's three commands over files (cli_recipe): a Cityscapes-
    format tree written by tools/cityscapes_tree.py (CLI_TRAIN training
    and CLI_VAL validation images at 1024x2048, adaptive-filtered RGB PNGs,
@@ -260,7 +296,7 @@ Prints, at the end and in compact JSON (about 37 kB in all: send the
 output to a file where only a tail of it comes back), the slices'
 numbers (the zoo and criteria lines, items 8.1-8.2; the cli_recipe line,
 item 8b; the loader_arms line, item 8d; the voc_recipe line, item 8c;
-the evals line, item 8e; evaluation;
+the evals line, item 8e; the dp line, item 8f; evaluation;
 stage 1 at both nseg; plbl; the al_rounds line: per round the selection
 seconds, train img/s, validations, eval mIoU, checkpoint save and load
 seconds; then plbl img/s, stage-2 img/s and mIoU, peak memory and the
@@ -278,6 +314,7 @@ Any failure raises and exits non-zero; there is no CPU fallback.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -346,6 +383,11 @@ EV_TRAIN, EV_VAL, EV_SELECT, EV_WINDOWS, EV_ITRS = 4, 2, 0.3, 8, 3
 # the small checks of the evals: SlidingEval at crop EV_CROP on an
 # EV_HW image, float32, TF32 off, within 1e-4 of the largest logit
 EV_CROP, EV_HW = 64, (96, 160)
+# the data-parallel phase: DP_STEPS recipe steps at world 1 (a group of one
+# rank), step 0 and a DP_SGD_STEPS-step SGD trajectory at world 2 (two
+# processes sharing the card), one active-learning round at world 2 with
+# DP_ITRS stage-1 and stage-2 steps; every group joined within DP_TIMEOUT s
+DP_STEPS, DP_SGD_STEPS, DP_ITRS, DP_TIMEOUT = 6, 3, 4, 400
 TIMING_RUNS, REPEATS = 20, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -3725,6 +3767,428 @@ def small_selector_check(dev, variables):
     return err
 
 
+# -- the data-parallel phase (dp) ---------------------------------------------
+def _dp_model(variables, dev):
+    """The recipe model on `dev` with the seeded `variables`."""
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.models.factory import get_model
+
+    model = get_model("deeplabv3pluswn_resnet50deepstem", NUM_CLASSES,
+                      16, separable_conv=True, device=dev)
+    convert.load_variables(model, variables)
+    return model
+
+
+def _flat_grads(model):
+    return torch.cat([p.grad.reshape(-1).float() for p in model.parameters()
+                      if p.grad is not None]).cpu()
+
+
+def dp_steps(variables, cfg, batches, device, identity_check=False):
+    """cfg's stage-1 steps from `variables` on this rank's rows of each
+    global batch (every rank of a group, or the process alone): the
+    logged losses (global), the step-0 gradient (summed over the ranks;
+    rank 0 only), the weights after the steps, the kernels' launches, ms
+    a step after the first, the gradient bytes all-reduced a step and
+    the peak GiB of this process. identity_check: every collective of
+    the step must give back its input bitwise (a group of one rank)."""
+    from mulactseg_tpu_torch.engine.train import make_train_step
+    from mulactseg_tpu_torch.ops import _build
+    from mulactseg_tpu_torch.parallel import mesh
+
+    dev = torch.device(device)
+    model = _dp_model(variables, dev)
+    step = make_train_step(model, cfg, device=dev,
+                           generator=torch.Generator(dev).manual_seed(0))
+    rows = mesh.local_rows(cfg.train_batch_size)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    losses, grad0, times = [], None, []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        aux = step({k: v[rows] for k, v in batch.items()})
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in aux.items()})
+        if i == 0 and mesh.is_main():
+            grad0 = _flat_grads(model)
+    launches = dict(_build.LAUNCHES)
+    out = {"losses": losses, "grad0": grad0, "launches": launches,
+           "step_ms": statistics.mean(times[1:] or times) * 1e3,
+           "grad_bytes": 4 * sum(p.numel() for p in model.parameters()
+                                 if p.grad is not None),
+           "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                        if dev.type == "cuda" else None),
+           "state": ({k: v.detach().cpu()
+                      for k, v in model.state_dict().items()}
+                     if mesh.world() == 1 else None)}
+    if identity_check:
+        grads = [p.grad.clone() for p in model.parameters()
+                 if p.grad is not None]
+        mesh.all_reduce_grads(model)
+        sums = torch.randn(2, 64, device=dev)
+        out["identity"] = all(torch.equal(g, p.grad) for g, p in zip(
+            grads, (p for p in model.parameters() if p.grad is not None))) \
+            and torch.equal(mesh.all_reduce_sum(sums), sums)
+    return out
+
+
+def dp_world1(variables, adamw, sgds, batches, sgd_batches, device):
+    """World 1 (one rank): the recipe's AdamW steps, then from the
+    seeded weights again the SGD trajectory under each config of sgds."""
+    a = dp_steps(variables, adamw, batches, device, identity_check=True)
+    return a, [dp_steps(variables, c, sgd_batches, device) for c in sgds]
+
+
+def dp_world2(variables, sgds, batches, device):
+    """World 2: the SGD trajectory under each config of sgds."""
+    return [dp_steps(variables, c, batches, device) for c in sgds]
+
+
+def _trajectory_dev(got, want):
+    return max(abs(a["train_loss"] - b["train_loss"])
+               / max(abs(b["train_loss"]), 1e-6) for a, b in zip(got, want))
+
+
+def _grad_stats(got, want):
+    """(loss-free) cosine and relative norm deviation of two flat
+    gradients, in float64."""
+    g, w = got.double(), want.double()
+    cos = float(g @ w / (g.norm() * w.norm() + 1e-30))
+    return cos, float(abs(g.norm() - w.norm()) / max(float(w.norm()), 1e-30))
+
+
+def _dp_sets(cfg, n_pool, n_val):
+    """The synthetic active-learning sets of the round (al_rounds'
+    seeds): pool and label sets of n_pool images, a val set of n_val."""
+    from mulactseg_tpu_torch.data.synthetic import SyntheticRegionDataset
+
+    def dataset(split, n, seed):
+        return SyntheticRegionDataset(n_images=n, H=cfg.crop_size[0],
+                                      W=cfg.crop_size[1],
+                                      num_classes=cfg.num_classes,
+                                      nseg=cfg.nseg, split=split, seed=seed)
+
+    pool, label = dataset("active-ulabel", n_pool, 7), \
+        dataset("active-label", n_pool, 7)
+    label.suppix, label.im_idx = {}, []
+    return pool, label, dataset("val", n_val, 8)
+
+
+def _regions(suppix):
+    return {(k, int(i)) for k, ids in suppix.items() for i in ids}
+
+
+def dp_round(cfg, s2cfg, init, images_dir, sizes, device):
+    """One active-learning round on every rank of the group (docstring,
+    item 8f): the paper's selector from the init file, training with
+    validation, the best checkpoint back, eval, pseudo-labelling (rank 0)
+    and stage 2; launches counted around training, plbl and stage 2."""
+    from mulactseg_tpu_torch.acquisition import get_selector
+    from mulactseg_tpu_torch.active import RegionActiveSet
+    from mulactseg_tpu_torch.data.datasets import RegionDatasetPlbl
+    from mulactseg_tpu_torch.data.loader import DataProvider
+    from mulactseg_tpu_torch.engine.rounds import ALTrainer
+    from mulactseg_tpu_torch.ops import _build
+    from mulactseg_tpu_torch.plbl.generator import (
+        PseudoLabelGenerator,
+        plbl_save_dir,
+    )
+
+    dev = torch.device(device)
+    pool, label, val = _dp_sets(cfg, *sizes)
+    active = RegionActiveSet(cfg, pool, label)
+    active.selection_iter = 1
+    trainer = ALTrainer(cfg, 1, val_dataset=val, eval_dataset=val,
+                        device=dev)
+    trainer.load(init)
+    t0 = time.perf_counter()
+    get_selector("my_bvsb_predclsbal_pwr_banignore", cfg).select_next_batch(
+        trainer, active, cfg.active_selection_size)
+    active.dump_datalist()
+    select_s = time.perf_counter() - t0
+    losses, validations = [], []
+    real = trainer.validate
+    trainer.validate = lambda it: validations.append(real(it))
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rate = trainer.train(active, metrics_cb=lambda it, aux:
+                         losses.append(aux["train_loss"]))
+    train_s = time.perf_counter() - t0
+    train_launches = dict(_build.LAUNCHES)
+    if trainer.best_iou == 0.0:
+        trainer.save()
+    else:
+        trainer.load(trainer.checkpoint_file, strip_classifier=False)
+    miou, _ = trainer.eval()
+    confusion = trainer.evaluator.confusion
+
+    # pseudo-labels of the label set with the round's checkpoint: rank 0
+    # generates, the others wait for its PNGs
+    gen = PseudoLabelGenerator(trainer.model, cfg, "cosprop_includeonehot",
+                               device=dev)
+    plbl_dir = plbl_save_dir(trainer.checkpoint_file,
+                             "cosprop_includeonehot", "01")
+    loader = DataProvider(label, 1, shuffle=False, drop_last=False,
+                          infinite=False, num_workers=0)
+    _sync(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    plbl_miou = gen.generate(None, loader, save_dir=plbl_dir,
+                             suppix=label.suppix)[0]
+    _sync(dev)
+    plbl_s = time.perf_counter() - t0
+    plbl_launches = dict(_build.LAUNCHES)
+    loader.close()
+    del gen, trainer
+
+    # stage 2 on the pseudo-labels and the images as RGB PNGs
+    stage2 = RegionDatasetPlbl(s2cfg, [
+        [os.path.join(images_dir, k[0]), k[1], k[2]] for k in label.im_idx],
+        plbl_dir)
+
+    class Stage2Set:
+        def get_trainset(self):
+            return stage2
+
+    s2 = ALTrainer(s2cfg, 1, device=dev)
+    s2.load(init)
+    s2losses = []
+    _build.reset_launches()
+    s2_rate = s2.train(Stage2Set(), metrics_cb=lambda it, aux:
+                       s2losses.append(aux["train_loss"]))
+    return {"regions": _regions(label.suppix), "n_label": len(label),
+            "select_s": select_s, "train_s": train_s, "train_img_per_s": rate,
+            "losses": losses, "validations": validations, "miou": miou,
+            "confusion": confusion, "train_launches": train_launches,
+            "plbl_s": plbl_s, "plbl_miou": plbl_miou,
+            "plbl_launches": plbl_launches,
+            "stage2_img_per_s": s2_rate, "stage2_losses": s2losses,
+            "stage2_launches": dict(_build.LAUNCHES),
+            "files": sorted(os.listdir(cfg.model_save_dir)),
+            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if dev.type == "cuda" else None)}
+
+
+def dp_slice(variables, dev, smi, workdir, backend1="nccl",
+             backend2="gloo"):
+    """The data-parallel main path (docstring, item 8f): world 1 under
+    backend1 against the step without a group, world 2 (two processes
+    sharing the card, each with device `dev`) under backend2 against
+    world 1, and one active-learning round at world 2. Returns (the dp
+    line, the path's launches summed over the ranks)."""
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.data.loader import DataProvider
+    from mulactseg_tpu_torch.engine.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from mulactseg_tpu_torch.engine.evaluate import Evaluator
+    from mulactseg_tpu_torch.engine.rounds import ALTrainer
+    from mulactseg_tpu_torch.acquisition import get_selector
+    from mulactseg_tpu_torch.active import RegionActiveSet
+    from mulactseg_tpu_torch.parallel import mesh
+    from mulactseg_tpu_torch.utils.png import write_rgb8
+
+    device = str(dev)
+    common = dict(num_classes=NUM_CLASSES - 1, nseg=NSEG, crop_size=(H, W),
+                  train_batch_size=B, dtype="bfloat16", separable_conv=True,
+                  method="active_joint_multi_predignore_lossdecomp")
+    adamw = Config(finetune_itrs=DP_STEPS, **common)
+    # the JAX dryrun holds float32 runs to its bounds; the recipe's bf16
+    # convolutions round differently at 2 images a rank (other cuDNN
+    # algorithms), and the step-0 gradient of the seeded model is chaotic
+    # in its input (the group term's argmax), so bf16 is held to the
+    # loss and trajectory bounds and its gradient agreement is reported
+    sgd16 = Config(optimizer="sgd", finetune_itrs=DP_SGD_STEPS, **common)
+    sgds = (dataclasses.replace(sgd16, dtype="float32"), sgd16)
+    batches = make_batches(DP_STEPS, seed=5)
+    sgd_batches = batches[:DP_SGD_STEPS]
+
+    # world 1: the group of one rank against the process alone, twice
+    # (the card's step is not bitwise reproducible: atomic adds in the
+    # backward); then the SGD trajectory of world 1
+    t0 = time.perf_counter()
+    refs = [dp_steps(variables, adamw, batches, device) for _ in range(2)]
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w1, w1_sgd = mesh.spawn(dp_world1, 1, backend1, device, variables, adamw,
+                            sgds, batches, sgd_batches, device,
+                            timeout=DP_TIMEOUT)[0]
+    w1_s = time.perf_counter() - t0
+    check(w1["identity"], "world 1: a collective changed its input")
+    check(w1["losses"][0] == refs[0]["losses"][0],
+          f"world 1 step 0 {w1['losses'][0]} is not the step without a "
+          f"group's {refs[0]['losses'][0]} bitwise")
+    repeat_dev = _trajectory_dev(refs[1]["losses"], refs[0]["losses"])
+    w1_dev = _trajectory_dev(w1["losses"], refs[0]["losses"])
+    check(w1_dev < 0.05, f"world 1's {DP_STEPS} steps stray {w1_dev} from "
+          "the step without a group")
+    differing = sum(not torch.equal(w1["state"][k], v)
+                    for k, v in refs[0]["state"].items())
+    repeat_differing = sum(not torch.equal(refs[1]["state"][k], v)
+                           for k, v in refs[0]["state"].items())
+    for r in (w1, *w1_sgd, *refs):
+        check(r["launches"] == {k: len(r["losses"]) for k in STAGE1_KERNELS},
+              f"world 1 launches {r['launches']}")
+
+    # world 2: two processes on the one card, step 0 and the SGD
+    # trajectory against world 1's, in float32 and in bf16
+    t0 = time.perf_counter()
+    w2 = mesh.spawn(dp_world2, 2, backend2, device, variables, sgds,
+                    sgd_batches, device, timeout=DP_TIMEOUT)
+    w2_s = time.perf_counter() - t0
+    agree = {}
+    for i, c in enumerate(sgds):
+        mine, want = w2[0][i], w1_sgd[i]
+        l2, l1 = (mine["losses"][0]["train_loss"],
+                  want["losses"][0]["train_loss"])
+        cos, norm_dev = _grad_stats(mine["grad0"], want["grad0"])
+        agree[c.dtype] = {
+            "step0_loss_dev": abs(l2 - l1) / abs(l1), "grad_cos": cos,
+            "grad_norm_dev": norm_dev,
+            "sgd_traj_dev": _trajectory_dev(mine["losses"], want["losses"]),
+            "step_ms": [w2[r][i]["step_ms"] for r in range(2)],
+            "world1_step_ms": want["step_ms"],
+            "peak_gib": [w2[r][i]["peak_gib"] for r in range(2)]}
+        a = agree[c.dtype]
+        print(f"dp world 2 ({backend2}, two ranks on one card) against world "
+              f"1, {c.dtype}: step-0 loss dev {a['step0_loss_dev']:.3e}, "
+              f"gradient cosine {cos:.6f}, norm dev {norm_dev:.3e}, "
+              f"{DP_SGD_STEPS}-step SGD loss dev {a['sgd_traj_dev']:.3e}",
+              flush=True)
+        check(a["step0_loss_dev"] < 1e-3 and a["sgd_traj_dev"] < 0.05,
+              f"world 2 {c.dtype}: loss or trajectory outside the JAX "
+              "dryrun's bounds")
+        for r in range(2):
+            res = w2[r][i]
+            check(res["launches"] == {k: DP_SGD_STEPS
+                                      for k in STAGE1_KERNELS},
+                  f"world 2 rank {r} launches {res['launches']}")
+            check(res["losses"] == mine["losses"],
+                  f"world 2 rank {r} logged other losses")
+    f32 = agree["float32"]
+    check(f32["grad_cos"] >= 0.99 and f32["grad_norm_dev"] < 1e-2,
+          "world 2 float32 step-0 gradient outside the JAX dryrun's bounds")
+
+    # one active-learning round at world 2, its world-1 references here
+    run = os.path.join(workdir, "run")
+    rcfg = Config(model_save_dir=run, finetune_itrs=DP_ITRS,
+                  val_period=DP_ITRS // 2, val_start=0,
+                  log_period=1, val_batch_size=1, num_workers=0,
+                  val_num_workers=0, active_selection_size=AL_BUDGET,
+                  **common)
+    s2cfg = dataclasses.replace(rcfg, method="active_predignore",
+                                stage2=True)
+    init = os.path.join(workdir, "deeplab_resnet50deepstem_imagenet_"
+                        "pretrained_seed0.pth")
+    save_checkpoint(init, _dp_model(variables, dev))
+    pool, label, val = _dp_sets(rcfg, AL_POOL, AL_VAL)
+    images_dir = os.path.join(workdir, "images")
+    for i, key in enumerate(pool.im_idx):
+        os.makedirs(images_dir, exist_ok=True)
+        write_rgb8(os.path.join(images_dir, key[0]), pool.images[i])
+    ref = ALTrainer(dataclasses.replace(rcfg, model_save_dir=os.path.join(
+        workdir, "ref")), 1, device=dev)
+    ref.load(init)
+    active = RegionActiveSet(ref.cfg, pool, label)
+    active.selection_iter = 1
+    get_selector("my_bvsb_predclsbal_pwr_banignore", ref.cfg
+                 ).select_next_batch(ref, active, rcfg.active_selection_size)
+    want = _regions(label.suppix)
+    del ref
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rnd = mesh.spawn(dp_round, 2, backend2, device, rcfg, s2cfg, init,
+                     images_dir, (AL_POOL, AL_VAL), device,
+                     timeout=DP_TIMEOUT)
+    round_s = time.perf_counter() - t0
+    got = rnd[0]["regions"]
+    jaccard = len(got & want) / max(len(got | want), 1)
+    print(f"dp round at world 2: selection Jaccard {jaccard:.6f} against "
+          f"world 1 ({len(want)} regions)", flush=True)
+    check(jaccard >= 0.99, f"world 2 selection Jaccard {jaccard}")
+    n_label = rnd[0]["n_label"]
+    for r, res in enumerate(rnd):
+        check(res["regions"] == got, f"rank {r} selected other regions")
+        check(res["train_launches"] == {k: DP_ITRS for k in STAGE1_KERNELS},
+              f"round rank {r} training launches {res['train_launches']}")
+        want_k5 = {"seg_max_fwd": n_label} if r == 0 else {}
+        check(res["plbl_launches"] == want_k5,
+              f"round rank {r} plbl launches {res['plbl_launches']}")
+        check(res["stage2_launches"] == {},
+              f"round rank {r} stage-2 launches {res['stage2_launches']}")
+        check(len(res["validations"]) == 2 and all(
+            math.isfinite(v) for v in res["losses"] + res["stage2_losses"]
+            + res["validations"]), f"round rank {r}: bad losses or "
+              "validations")
+        check(np.array_equal(res["confusion"], rnd[0]["confusion"]),
+              f"round rank {r} counted another confusion matrix")
+    check(rnd[0]["files"] == ["checkpoint01", "datalist_01.json",
+                              "my_bvsb_predclsbal_pwr_banignore_"
+                              "selection_01.json", "plbl_gen_"
+                              "cosprop_includeonehot"],
+          f"round files {rnd[0]['files']}")
+    # world 1's eval of the checkpoint world 2 wrote, at batch 1
+    model = _dp_model(variables, dev)
+    model.load_state_dict(load_checkpoint(os.path.join(
+        run, "checkpoint01"))["model_state_dict"])
+    loader = DataProvider(val, 1, shuffle=False, drop_last=False,
+                          infinite=False, num_workers=0)
+    ev = Evaluator(model, rcfg, device=dev)
+    ev.run(None, loader)
+    loader.close()
+    check(np.array_equal(ev.confusion, rnd[0]["confusion"]),
+          "world 2's eval confusion matrix is not world 1's")
+    del model
+
+    launches = Counter()
+    for res in (w1, *w1_sgd, *w2[0], *w2[1]):
+        launches += Counter(res["launches"])
+    for res in rnd:
+        launches += Counter(res["train_launches"]) + Counter(
+            res["plbl_launches"])
+    line = {"dp": {
+        "card": smi, "config": f"deeplabv3pluswn_resnet50deepstem "
+        f"separable, {NUM_CLASSES} outputs, bf16, global batch {B}, "
+        f"{H}x{W}, nseg {NSEG}",
+        "world1": {"backend": backend1, "steps": DP_STEPS,
+                   "step_ms": w1["step_ms"],
+                   "img_per_s": B / w1["step_ms"] * 1e3,
+                   "grad_bytes": w1["grad_bytes"], "peak_gib": w1["peak_gib"],
+                   "no_group_step_ms": refs[0]["step_ms"],
+                   "step0_loss_bitwise": True, "identity": w1["identity"],
+                   "traj_dev": w1_dev, "no_group_repeat_dev": repeat_dev,
+                   "tensors_differing": differing,
+                   "no_group_repeat_tensors_differing": repeat_differing,
+                   "tensors": len(refs[0]["state"]), "spawn_s": w1_s,
+                   "no_group_s": ref_s},
+        "world2": {"backend": backend2, "ranks_share_one_card": True,
+                   "sgd_steps": DP_SGD_STEPS,
+                   "img_per_s": B / max(agree["bfloat16"]["step_ms"]) * 1e3,
+                   "grad_bytes": w2[0][1]["grad_bytes"],
+                   "launches_per_rank": [r[1]["launches"] for r in w2],
+                   "spawn_s": w2_s, **agree},
+        "round": {"world": 2, "jaccard": jaccard, "regions": len(want),
+                  "label_images": n_label,
+                  "select_s": [r["select_s"] for r in rnd],
+                  "train_s": [r["train_s"] for r in rnd],
+                  "train_img_per_s": rnd[0]["train_img_per_s"],
+                  "validations": rnd[0]["validations"],
+                  "eval_miou": rnd[0]["miou"],
+                  "confusion_equal_world1": True,
+                  "plbl_s": rnd[0]["plbl_s"], "plbl_miou": rnd[0]["plbl_miou"],
+                  "plbl_launches": [r["plbl_launches"] for r in rnd],
+                  "stage2_img_per_s": rnd[0]["stage2_img_per_s"],
+                  "stage2_loss": rnd[0]["stage2_losses"][-1],
+                  "peak_gib": [r["peak_gib"] for r in rnd],
+                  "spawn_s": round_s}}}
+    return line, dict(launches)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available()"
@@ -3864,6 +4328,14 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         al_line, al_launches = al_rounds_slice(variables, dev, smi, tmp)
     small_selector_check(dev, variables)
+    # data parallelism: a group of one rank under NCCL, then two ranks
+    # sharing the card under gloo (NCCL refuses two ranks on one card),
+    # each on cuda:<this card> explicitly
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_line, dp_launches = dp_slice(
+            variables, torch.device("cuda", torch.cuda.current_device()),
+            smi, tmp)
     # the recipe's three commands over files on disk, after the rounds
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3915,7 +4387,7 @@ def main():
                "al_rounds": al_launches, "cli_recipe": cli_launches,
                "voc": voc_launches, "zoo": zoo_launches,
                "criteria": crit_launches, "loader_arms": arms_launches,
-               "evals": evals_launches}
+               "evals": evals_launches, "dp": dp_launches}
     launches = sum((Counter(n) for n in by_path.values()), Counter())
     check(all(launches[name] > 0 for name in KERNELS),
           f"a kernel was never launched on a main path: {dict(launches)}")
@@ -3923,7 +4395,7 @@ def main():
     # every slice's line at the end, the kernels line and the card last
     compact = {"separators": (",", ":")}
     for line in (zoo_line, crit_line, cli_line, arms_line, voc_line,
-                 evals_line, eval_stats):
+                 evals_line, dp_line, eval_stats):
         print(json.dumps(line, **compact))
     print(json.dumps({
         "slice": "cityscapes stage-1 train step", "card": smi,

@@ -18,6 +18,7 @@ import torch
 
 from mulactseg_tpu_torch.acquisition import scoring
 from mulactseg_tpu_torch.data.loader import DataProvider
+from mulactseg_tpu_torch.parallel import mesh
 
 
 class RegionSelector:
@@ -64,7 +65,7 @@ class RegionSelector:
 
     def select_next_batch(self, trainer, active_set, selection_count):
         scores = self.calculate_scores(trainer, active_set.trg_pool_dataset)
-        if self.cfg.save_scores:
+        if self.cfg.save_scores and mesh.is_main():
             d = os.path.join(self.cfg.model_save_dir, "AL_record")
             os.makedirs(d, exist_ok=True)
             with open(os.path.join(

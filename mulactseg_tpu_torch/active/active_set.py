@@ -8,7 +8,8 @@ score-sorted region list moving ids pool -> labelled until the budget is
 passed, where `fair_counting` (with or_labeling) charges the number of
 classes in the region's multi-hot annotation (clicks) instead of 1. The
 selection and the datalist persist as JSON, byte for byte the JAX
-package's files.
+package's files. Under data parallelism every rank holds the same sets
+and rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from __future__ import annotations
 import json
 import os
 from typing import Optional, Sequence, Tuple
+
+from mulactseg_tpu_torch.parallel import mesh
 
 
 class RegionActiveSet:
@@ -75,6 +78,8 @@ class RegionActiveSet:
         return selected_sup_count, selected_count
 
     def _save_selection(self, chosen, selection_method):
+        if not mesh.is_main():  # every rank selected the same regions
+            return
         os.makedirs(self.cfg.model_save_dir, exist_ok=True)
         fname = f"{selection_method}_selection_{self.selection_iter:02d}.json"
         path = os.path.join(self.cfg.model_save_dir, fname)
@@ -83,6 +88,8 @@ class RegionActiveSet:
 
     # -- persistence -----------------------------------------------------------
     def dump_datalist(self, path: Optional[str] = None):
+        if not mesh.is_main():
+            return
         os.makedirs(self.cfg.model_save_dir, exist_ok=True)
         if path is None:
             path = os.path.join(self.cfg.model_save_dir,

@@ -19,6 +19,10 @@ of mulactseg_tpu/cli/eval_al.py:
         --method eval_cosplbl_within_multihot \\
         --datalist_path datalist_02.json ...
 
+Under torchrun the plain eval splits the images over the ranks, rank 0
+alone pseudo-labels while the others wait, and the analysis evals
+refuse to run (ROADMAP.md queue A, item 17b).
+
 The PNGs go to plbl_gen_<type>/round_<NN> beside --resume_checkpoint,
 where train_stage2 reads them; an analysis eval's overlays to
 vis_<method>_<NN> in the run directory. Runs on the card;
@@ -46,6 +50,7 @@ from mulactseg_tpu_torch.engine.analysis import (
     SelectionAccuracyEvaluator,
 )
 from mulactseg_tpu_torch.engine.rounds import ALTrainer
+from mulactseg_tpu_torch.parallel import mesh
 from mulactseg_tpu_torch.plbl.generator import (
     METHOD_TO_PLBL,
     PseudoLabelGenerator,
@@ -73,6 +78,7 @@ def _provider(ds, batch, cfg):
 
 
 def main(argv=None, device="cuda"):
+    mesh.init_from_env(device)
     cfg = parse_config(argv)
     if not cfg.plbl_type and cfg.method in METHOD_TO_PLBL:
         # the reference's command lines name the plbl type by --method
@@ -87,6 +93,12 @@ def main(argv=None, device="cuda"):
     if ckpt:
         trainer.load(ckpt)
 
+    if mesh.world() > 1 and (cfg.method == "active_joint_multi_analysis"
+                             or cfg.method in ANALYSIS_METHODS):
+        raise NotImplementedError(
+            f"{cfg.method} runs on one rank; launch it without torchrun "
+            "(the analysis evals on several ranks: ROADMAP.md queue A, "
+            "item 17b)")
     if cfg.method == "active_joint_multi_analysis":
         # top-1 selection accuracy over the labelled set
         # (trainer/active_joint_multi_analysis.py:27-102)

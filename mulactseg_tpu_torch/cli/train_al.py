@@ -9,6 +9,13 @@ Resume: --init_iteration k with --datalist_path restores the selection
 state; --resume_checkpoint warm-starts the model; --init_checkpoint is the
 per-round (ImageNet) init. --debug_nans turns on autograd's anomaly
 detection. Runs on the card; main(argv, device="cpu") runs on the CPU.
+On several cards, one rank each (data parallelism at the same global
+batch, parallel/mesh.py):
+
+    torchrun --nproc_per_node N -m mulactseg_tpu_torch.cli.train_al ...
+
+with --train_batch_size a multiple of N; rank 0 writes the logs, metrics,
+checkpoints and JSON files. The same holds for train_stage2 and eval_al.
 """
 
 from __future__ import annotations
@@ -18,9 +25,11 @@ import torch
 from mulactseg_tpu_torch.cli.common import build_active_datasets, setup_run
 from mulactseg_tpu_torch.config import parse_config
 from mulactseg_tpu_torch.engine.rounds import run_al_rounds
+from mulactseg_tpu_torch.parallel import mesh
 
 
 def main(argv=None, device="cuda"):
+    mesh.init_from_env(device)
     cfg = parse_config(argv)
     if cfg.debug_nans:
         torch.autograd.set_detect_anomaly(True)

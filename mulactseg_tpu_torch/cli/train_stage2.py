@@ -23,6 +23,7 @@ from mulactseg_tpu_torch.config import parse_config
 from mulactseg_tpu_torch.data.datasets import RegionDatasetPlbl
 from mulactseg_tpu_torch.data.transforms import get_train_transform
 from mulactseg_tpu_torch.engine.rounds import ALTrainer
+from mulactseg_tpu_torch.parallel import mesh
 from mulactseg_tpu_torch.plbl.generator import plbl_save_dir
 
 
@@ -37,6 +38,7 @@ class _Stage2Set:
 
 
 def main(argv=None, device="cuda"):
+    mesh.init_from_env(device)
     cfg = parse_config(argv)
     logger, sink = setup_run(cfg)
     active_set, val = build_active_datasets(cfg)

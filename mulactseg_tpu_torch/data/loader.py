@@ -35,6 +35,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from mulactseg_tpu_torch.parallel import mesh
+
 PREFETCH = 4  # batches in flight, at least
 _SHARED_BYTES = 1 << 16  # arrays a worker returns through shared memory
 _SHARED_KEY = "_shared"
@@ -245,12 +247,26 @@ class _Items:
 class DataProvider:
     """Infinite (or single-epoch) iterator of collated numpy batches.
     processes: build the items in worker processes; by default when the
-    dataset reads files and num_workers >= 2."""
+    dataset reads files and num_workers >= 2.
+
+    split, under data parallelism (parallel/mesh.py): every rank walks the
+    same index order and draws every item's transform parameters, then
+    with "rows" builds only its rows of each batch of batch_size (the
+    global batch; training), with "batches" only the batches i with
+    i % world == rank (evaluation). None: every rank gets every batch
+    (pool scoring, whose rows the trainer splits)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, infinite: bool = True,
                  num_workers: int = 4, seed: int = 0,
-                 processes: Optional[bool] = None):
+                 processes: Optional[bool] = None,
+                 split: Optional[str] = None):
+        if split not in (None, "rows", "batches"):
+            raise ValueError(f"split {split!r}: None, 'rows' or 'batches'")
+        self.split = split
+        self.rank, self.world = mesh.rank(), mesh.world()
+        if split == "rows":
+            mesh.local_rows(batch_size)  # raises unless world divides it
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -269,8 +285,12 @@ class DataProvider:
     def __len__(self):
         n = len(self.dataset)
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            n = n // self.batch_size
+        else:
+            n = (n + self.batch_size - 1) // self.batch_size
+        if self.split == "batches":
+            return (n - self.rank + self.world - 1) // self.world
+        return n
 
     def _index_batches(self):
         while True:
@@ -294,15 +314,25 @@ class DataProvider:
     def _gen(self):
         pending = queue.Queue()
         batches = self._index_batches()
+        counter = itertools.count()
         draw = getattr(self.dataset, "draw", lambda i: None)
 
         def submit_next():
-            try:
-                ids = [int(i) for i in next(batches)]
-            except StopIteration:
-                return False
-            pending.put(self.items.load_batch(ids, [draw(i) for i in ids]))
-            return True
+            while True:
+                try:
+                    ids = [int(i) for i in next(batches)]
+                except StopIteration:
+                    return False
+                params = [draw(i) for i in ids]
+                k = next(counter)
+                if self.split == "batches" and \
+                        k % self.world != self.rank:
+                    continue
+                if self.split == "rows":
+                    rows = mesh.local_rows(len(ids), self.rank, self.world)
+                    ids, params = ids[rows], params[rows]
+                pending.put(self.items.load_batch(ids, params))
+                return True
 
         alive = True
         try:

@@ -21,23 +21,30 @@ from typing import Dict, Optional
 
 import torch
 
+from mulactseg_tpu_torch.parallel import mesh
+
 
 def save_checkpoint(path: str, model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     step: int = 0) -> None:
-    """Write atomically: to a temporary name, then rename over `path`."""
-    path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    payload = {
-        "model_state_dict": {k: v.detach().cpu()
-                             for k, v in model.state_dict().items()},
-        "optimizer_state_dict": (optimizer.state_dict()
-                                 if optimizer is not None else None),
-        "step": int(step),
-    }
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    """Write atomically: to a temporary name, then rename over `path`.
+    Under data parallelism every rank calls this: rank 0 writes (the
+    ranks hold the same weights) and every rank waits at a barrier until
+    the file is there."""
+    if mesh.is_main():
+        path = os.path.abspath(path)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        payload = {
+            "model_state_dict": {k: v.detach().cpu()
+                                 for k, v in model.state_dict().items()},
+            "optimizer_state_dict": (optimizer.state_dict()
+                                     if optimizer is not None else None),
+            "step": int(step),
+        }
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    mesh.barrier()
 
 
 def load_checkpoint(path: str) -> Dict:

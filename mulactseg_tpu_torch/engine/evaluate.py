@@ -9,6 +9,15 @@ trainer/eval_slide.py:17-88), which sums the first C channels over the
 crop grid and so takes no predignore. The forward runs in eval mode,
 under bfloat16 autocast on the card when cfg.dtype == "bfloat16", as the
 train step does; uint8 images are normalised on the device.
+
+Under data parallelism (parallel/mesh.py) whole batches go to the ranks
+in loader order (DataProvider(split="batches")) and each rank's int64
+confusion matrix is summed over the ranks before the mIoU: every rank
+reports exactly what one rank counts. The JAX package shards a batch-1
+image's height over its mesh instead (its parallel/mesh.py:110-126, with
+GSPMD's halo exchanges). A hand-written halo exchange for every dilated
+convolution is not worth its cost here: a 1024x2048 image fits one card
+(the sliding eval's features peak at 9.53 GiB on an H100, PERF.md).
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import torch
 
 from mulactseg_tpu_torch.device import resolve_device
 from mulactseg_tpu_torch.engine.train import _device_normalize
+from mulactseg_tpu_torch.parallel import mesh
 from mulactseg_tpu_torch.utils.metrics import IoUIgnore, MeanIoU
 
 
@@ -43,6 +53,7 @@ class Evaluator:
         self.dev = resolve_device(device)
         self.autocast = self.dev.type == "cuda" and cfg.dtype == "bfloat16"
         self.sliding = None
+        self.confusion = None
         if cfg.sliding_eval:
             from mulactseg_tpu_torch.engine.sliding import SlidingEval
 
@@ -52,15 +63,18 @@ class Evaluator:
                 autocast=self.autocast)
 
     def run(self, model_state, loader: Iterable, *,
-            predignore: Optional[bool] = None, mesh=None):
+            predignore: Optional[bool] = None):
         """model_state: a state_dict to load first, or None to evaluate the
         model's weights as they are. loader yields dicts with 'images'
         (B, 3, H, W) uint8 or normalised float32 and 'labels' (B, H, W)
-        int. Returns (miou, iou_table_str) like trainer/base.py:161-175."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "spatially sharded eval over a device mesh is not ported "
-                "yet: ROADMAP.md queue A, item 17")
+        int; on several ranks a DataProvider(split="batches"). Returns
+        (miou, iou_table_str) like trainer/base.py:161-175, and keeps the
+        summed (C, C) confusion matrix in self.confusion."""
+        if mesh.world() > 1 and getattr(loader, "split", None) != "batches":
+            raise ValueError(
+                f"on {mesh.world()} ranks Evaluator.run takes a "
+                "DataProvider(split='batches'), so that each rank counts "
+                "its own batches")
         cfg = self.cfg
         if model_state is not None:
             self.model.load_state_dict(model_state)
@@ -86,6 +100,10 @@ class Evaluator:
             else:
                 iou._after_step({"outputs": logits.argmax(1),
                                  "targets": labels})
+        iou.all_reduce(self.dev)
+        if ign is not None:
+            ign.all_reduce(self.dev)
+        self.confusion = iou.confusion()
         ious = iou._after_epoch()
         miou = float(np.mean(ious))
         table = [f"{miou:.2f}"] + [f"{v:.2f}" for v in ious]

@@ -1,5 +1,6 @@
 """Active-learning trainer shell and round orchestration: the port of
-mulactseg_tpu/engine/rounds.py (ALTrainer, run_al_rounds), on one device.
+mulactseg_tpu/engine/rounds.py (ALTrainer, run_al_rounds), on one card or
+on several, one rank each (parallel/mesh.py).
 
 ALTrainer holds one round's model, optimizer and step count: a fresh
 model every round (train_AL.py:44-46), the resume scenarios, the train
@@ -7,8 +8,17 @@ loop with periodic validation and the best-checkpoint policy
 (trainer/base.py:222-244), selection logits and eval. It takes one
 optimizer step per call: the JAX package's steps_per_dispatch amortises
 TPU dispatch over a lax.scan of K steps and has no counterpart here, so
-the option is ignored. Training on several cards (n_devices > 1) and the
-profiler switch are not ported yet.
+the option is ignored. The profiler switch is not ported yet.
+
+Data parallelism, the JAX package's mesh over cfg.n_devices: every rank
+of a process group (torchrun, one rank per card) runs the same
+run_al_rounds. Training steps on each rank's rows of the global batch
+(engine/train.py), pool scoring forwards each rank's rows of every pool
+batch and gathers the logits, so selection runs identically on every
+rank; validation and eval give whole batches to the ranks and sum their
+confusion matrices (engine/evaluate.py), so every rank takes the same
+best-checkpoint decision. Rank 0 writes the checkpoints and the JSON
+files; every rank reads them.
 
 The model and the optimizer change in place here (load_state_dict,
 optimizer.step), where the JAX package's train state is an immutable
@@ -44,6 +54,7 @@ from mulactseg_tpu_torch.engine.train import (
     make_train_step,
 )
 from mulactseg_tpu_torch.models.factory import get_model
+from mulactseg_tpu_torch.parallel import mesh
 
 log = logging.getLogger("mulactseg_tpu_torch")
 
@@ -51,15 +62,28 @@ log = logging.getLogger("mulactseg_tpu_torch")
 class ALTrainer:
     """One AL round's trainer (trainer/active.py:10-104). `model` injects
     a network (the tests' small twin); by default cfg.model is built with
-    weights drawn from cfg.seed, the same init every round."""
+    weights drawn from cfg.seed, the same init every round.
+
+    The data-parallel width is the process group's (1 without one).
+    cfg.n_devices=None takes it; another n_devices than the ranks that
+    run raises ValueError, and so does a train_batch_size that the width
+    does not divide. Unlike the JAX package's n_devices=None, which
+    shrinks its mesh to the largest width that divides the batch, a
+    launched group cannot shrink: start as many ranks as divide it."""
 
     def __init__(self, cfg, selection_iter: int, val_dataset=None,
                  eval_dataset=None, model: Optional[torch.nn.Module] = None,
                  device="cuda"):
-        if cfg.n_devices not in (None, 1):
-            raise NotImplementedError(
-                f"n_devices={cfg.n_devices}: training on several cards is "
-                "not ported yet: ROADMAP.md queue A, item 17")
+        width = mesh.world()
+        if cfg.n_devices not in (None, width):
+            raise ValueError(
+                f"n_devices={cfg.n_devices}, but {width} rank(s) run: start "
+                "one rank per card (torchrun --nproc_per_node "
+                f"{cfg.n_devices}), or leave n_devices unset")
+        if cfg.train_batch_size % width:
+            raise ValueError(
+                f"train_batch_size {cfg.train_batch_size} not divisible "
+                f"by data-parallel width {width}")
         if cfg.profile:
             raise NotImplementedError(
                 "cfg.profile (a profiler trace of the train loop) is not "
@@ -106,8 +130,16 @@ class ALTrainer:
 
     # -- inference ------------------------------------------------------------
     def predict_logits(self, images) -> torch.Tensor:
-        """Eval-mode float32 NCHW logits on the trainer's device."""
-        return self.eval_step(images)
+        """Eval-mode float32 NCHW logits on the trainer's device. Under
+        data parallelism the batch is padded to a multiple of the ranks
+        (the last image repeated), each rank forwards its rows, and the
+        rows are gathered and cut back (the JAX package's rounds.py:
+        116-125): every rank gets the whole batch's logits."""
+        if mesh.world() == 1:
+            return self.eval_step(images)
+        padded, n = mesh.pad_to_multiple(images, mesh.world())
+        rows = mesh.local_rows(padded.shape[0])
+        return mesh.all_gather_rows(self.eval_step(padded[rows]))[:n]
 
     # -- state ----------------------------------------------------------------
     def snapshot(self):
@@ -173,7 +205,8 @@ class ALTrainer:
                 f"method {cfg.method!r} is eval-only (no training criterion)")
         loader = DataProvider(active_set.get_trainset(), cfg.train_batch_size,
                               shuffle=True, drop_last=True, infinite=True,
-                              num_workers=cfg.num_workers, seed=cfg.seed)
+                              num_workers=cfg.num_workers, seed=cfg.seed,
+                              split="rows")
         t0 = time.time()
         it = n_img = 0
         try:
@@ -200,7 +233,8 @@ class ALTrainer:
     def _run_evaluator(self, dataset):
         loader = DataProvider(dataset, self.cfg.val_batch_size,
                               shuffle=False, drop_last=False, infinite=False,
-                              num_workers=self.cfg.val_num_workers)
+                              num_workers=self.cfg.val_num_workers,
+                              split="batches")
         try:
             return self.evaluator.run(None, loader)
         finally:

@@ -18,6 +18,13 @@ on the float32 NCHW logits, backward, the optimizer with its per-group
 schedule. The step moves to the device only the images and the keys its
 criterion reads. The JAX package's K-step lax.scan only hides TPU
 dispatch latency and has no counterpart here.
+
+Under data parallelism (parallel/mesh.py) each rank steps on its rows of
+the global batch: the weights are broadcast from rank 0 when the step is
+made, BN and the loss normalisers see the global batch, the gradients
+are summed over the ranks before the optimizer, and the NaN guard and
+the logged losses read the global loss. Only DP_CRITERIA normalise so;
+the others raise on several ranks.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from mulactseg_tpu_torch.losses.partial import (
 )
 from mulactseg_tpu_torch.losses.standard import cross_entropy
 from mulactseg_tpu_torch.models.layers import Dropout, bn_frozen
+from mulactseg_tpu_torch.parallel import mesh
 from mulactseg_tpu_torch.utils.schedule import ramp_up
 
 _REGION = ("target", "spx", "spmask")
@@ -69,6 +77,14 @@ _REGION = ("target", "spx", "spmask")
 
 def _zero_if_nan(x):
     return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+
+
+def _zero_if_nan_global(x):
+    """_zero_if_nan decided on the loss summed over the ranks, so that
+    under data parallelism every rank keeps or zeroes its share of the
+    global loss together, as one rank would."""
+    return torch.where(torch.isfinite(mesh.all_reduce_sum(x.detach())), x,
+                       torch.zeros_like(x))
 
 
 def _args(logits, batch):
@@ -102,12 +118,18 @@ def _lossdecomp_loss(cfg):
                 coeff_gm=cfg.coeff_gm, multi_ce_temp=cfg.multi_ce_temp,
                 group_ce_temp=cfg.group_ce_temp)
         else:
+            if mesh.world() > 1:
+                raise NotImplementedError(
+                    f"{cfg.method} on a batch without target bits (the "
+                    "unfused lossdecomp) normalises over one rank's rows: "
+                    "data parallelism for it is ROADMAP.md queue A, item "
+                    "17b")
             total, aux = lossdecomp(
                 *_args(logits, batch), nseg=cfg.nseg, coeff=cfg.coeff,
                 coeff_mc=cfg.coeff_mc, coeff_gm=cfg.coeff_gm,
                 multi_ce_temp=cfg.multi_ce_temp,
                 group_ce_temp=cfg.group_ce_temp)
-        return _zero_if_nan(total), aux
+        return _zero_if_nan_global(total), aux
     fn.keys = ("target_bits",) + _REGION
     return fn
 
@@ -508,6 +530,15 @@ CRITERIA: Dict[str, Callable] = {
     "active_joint_multi_predignore_logprecision": lambda cfg: _joint_loss(
         cfg, False),
 }
+# the criteria whose normalisers count the global batch under data
+# parallelism (losses/fused.lossdecomp_fused, losses/standard.cross_entropy):
+# the fused lossdecomp of both recipes and the plain CE of stage 2
+DP_CRITERIA = frozenset({
+    "active_joint_multi_predignore_lossdecomp",
+    "active_joint_multi_lossdecomp", "active_predignore", "active",
+    "active_slide"})
+
+
 def get_criterion(cfg):
     if cfg.method not in CRITERIA:
         raise KeyError(
@@ -558,6 +589,12 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
     round loop seeds dropout with cfg.seed)."""
     dev = resolve_device(device)
     criterion = get_criterion(cfg)
+    if mesh.world() > 1 and cfg.method not in DP_CRITERIA:
+        raise NotImplementedError(
+            f"method {cfg.method!r} on {mesh.world()} ranks: only "
+            f"{sorted(DP_CRITERIA)} normalise over the global batch so far; "
+            "the others are ROADMAP.md queue A, item 17b")
+    mesh.broadcast_state(model)
     needs_feat = getattr(criterion, "needs_feat", False)
     needs_rng = getattr(criterion, "needs_rng", False)
     needs_weak = getattr(criterion, "needs_weak_forward", False)
@@ -603,13 +640,24 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
                       else criterion(logits, batch, extra))
         opt.zero_grad(set_to_none=True)
         total.backward()
+        mesh.all_reduce_grads(model)
         opt.step()
         step.step += 1
-        return {k: v.detach() for k, v in aux.items()}
+        return _global_aux(aux)
 
     step.step = 0
     step.optimizer = opt
     return step
+
+
+def _global_aux(aux):
+    """The logged losses, detached; under a process group their sums over
+    the ranks, i.e. the global batch's losses (one all-reduce)."""
+    if not mesh.active():
+        return {k: v.detach() for k, v in aux.items()}
+    vals = mesh.all_reduce_sum(torch.stack([v.detach().float()
+                                            for v in aux.values()]))
+    return dict(zip(aux, vals))
 
 
 def make_eval_step(model: torch.nn.Module, cfg, device="cuda"):

@@ -6,7 +6,9 @@ coeff_gm*Group(multi-hot segments), normalisers 1 + count. The CE and MC
 terms are one pass over the logits (ops/pixel_loss.py, kernels K1/K2);
 the group term is a per-(segment, class) softmax max (ops/segment.py,
 kernels K3/K4). The JAX package zero-pads HW to a multiple of its TPU
-block; here P = B*H*W exactly.
+block; here P = B*H*W exactly. Under data parallelism the kernels run on
+each rank's images (a segment never crosses ranks: the group term's ids
+are per image) and only the normalisers' counts are all-reduced.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from mulactseg_tpu_torch.ops.pixel_loss import pixel_partial_ce_nchw
 from mulactseg_tpu_torch.ops.segment import segment_softmax_max_nchw
+from mulactseg_tpu_torch.parallel import mesh
 
 EPS = 1e-8
 
@@ -61,8 +64,6 @@ def lossdecomp_fused(logits, target_bits, targets, spx, *, nseg: int,
     bits3 = target_bits.reshape(B, 1, HW).int().contiguous()
 
     sums = pixel_partial_ce_nchw(lgc, bits3, multi_ce_temp)
-    ce = sums[0] / (1.0 + sums[1])
-    mc = sums[2] / (1.0 + sums[3])
 
     # group term: multi-hot pixels (popcount of the low C bits > 1) feed a
     # per-(segment, class) max; batch folded into the segment axis
@@ -77,9 +78,17 @@ def lossdecomp_fused(logits, target_bits, targets, spx, *, nseg: int,
     # presence is read from class 0's argmax (fused.py:132)
     present = (pix[:, 0] < P).reshape(B, nseg)
     entry = (targets > 0.5) & present[:, :, None]
+    # the normalisers count the global batch: under data parallelism the
+    # three counts are summed over the ranks (no gradient), so each rank's
+    # terms are its share and their sum over the ranks the global loss
+    counts = mesh.all_reduce_sum(torch.stack(
+        [sums[1].detach().double(), sums[3].detach().double(),
+         entry.sum().double()])).float()
+    ce = sums[0] / (1.0 + counts[0])
+    mc = sums[2] / (1.0 + counts[1])
     gnll = -torch.log(mx + EPS)
     group = torch.where(entry, gnll, torch.zeros((), device=gnll.device)
-                        ).sum() / (1.0 + entry.sum())
+                        ).sum() / (1.0 + counts[2])
 
     total = coeff * ce + coeff_mc * mc + coeff_gm * group
     return total, {"ce_loss": ce, "mc_loss": mc, "group_loss": group,

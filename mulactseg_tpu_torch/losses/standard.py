@@ -6,20 +6,25 @@ from __future__ import annotations
 
 import torch
 
+from mulactseg_tpu_torch.parallel import mesh
+
 EPS = 1e-8
 
 
 def cross_entropy(logits, labels, *, temp=1.0, ignore_index=255):
     """Mean CE over non-ignored pixels with temperature, in float32.
-    logits (B, C, H, W) float, labels (B, H, W) int."""
+    logits (B, C, H, W) float, labels (B, H, W) int. Under data
+    parallelism the count of non-ignored pixels is the global batch's
+    (summed over the ranks), so each rank returns its share of the
+    global mean."""
     lg = logits.float() / temp
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logp = torch.log_softmax(lg, dim=1)
     nll = -logp.gather(1, safe[:, None])[:, 0]
     loss = torch.where(valid, nll, torch.zeros_like(nll)).sum()
-    n = valid.sum().clamp(min=1)
-    return loss / n
+    n = mesh.all_reduce_sum(valid.sum().double()).clamp(min=1)
+    return loss / n.to(loss.dtype)
 
 
 def focal_loss(logits, labels, *, alpha=1.0, gamma=0.0, ignore_index=255,

@@ -14,6 +14,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mulactseg_tpu_torch.parallel import mesh
+
 
 class Conv2d(nn.Module):
     """Convolution with explicit symmetric padding dilation*(k-1)//2
@@ -47,7 +49,11 @@ class FastBatchNorm(nn.Module):
     y = x*a + b in the input dtype with a, b computed in float32.
 
     `frozen` (set by bn_frozen) makes a train-mode forward use and keep
-    the running statistics."""
+    the running statistics. Under data parallelism a train-mode forward
+    normalises with the statistics of the global batch (the sums
+    all-reduced over the ranks, the JAX package's parallel/mesh.py:
+    10-24); eval mode and frozen BN read the running statistics, with no
+    collective."""
 
     def __init__(self, channels: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -61,10 +67,14 @@ class FastBatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training and not self.frozen:
-            n = x.numel() // x.shape[1]
+            # global-batch statistics under data parallelism: one (2, C)
+            # all-reduce of [sum x, sum x^2] (parallel/mesh.py)
+            n = x.numel() // x.shape[1] * mesh.world()
             xf = x.float()
-            m = xf.sum(dim=(0, 2, 3)) / n
-            v = torch.clamp((xf * xf).sum(dim=(0, 2, 3)) / n - m * m, min=0.0)
+            sums = mesh.all_reduce_sum(torch.stack(
+                [xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
+            m = sums[0] / n
+            v = torch.clamp(sums[1] / n - m * m, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(1.0 - self.momentum).add_(
                     self.momentum * m.detach())
@@ -107,8 +117,13 @@ class Dropout(nn.Module):
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
+        # under data parallelism every rank draws the global batch's mask
+        # and keeps its own rows, so the masks are those of one rank
+        w = mesh.world()
+        keep = torch.rand((x.shape[0] * w,) + tuple(x.shape[1:]),
+                          generator=self.generator, device=x.device) >= self.p
+        if w > 1:
+            keep = keep[mesh.local_rows(keep.shape[0])]
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 

@@ -51,6 +51,7 @@ from torch.profiler import record_function
 from mulactseg_tpu_torch.device import resolve_device
 from mulactseg_tpu_torch.engine.evaluate import eval_forward
 from mulactseg_tpu_torch.engine.tta import tta_feat_forward
+from mulactseg_tpu_torch.parallel import mesh
 from mulactseg_tpu_torch.plbl.cosine_prop import (
     cosine_prototype_plbl,
     selected_spx_adjacency,
@@ -182,7 +183,19 @@ class PseudoLabelGenerator:
         'spmask' (1, H, W) and 'fnames' [[image, label, spx]] (the
         eval_region_*_all contract). `suppix` maps spx path -> selected
         superpixel ids. Returns (miou, iou_table, precision_table,
-        recall_table)."""
+        recall_table).
+
+        The JAX package pseudo-labels on one device: under data
+        parallelism rank 0 generates (the others never read their
+        loader) and the others wait until it has written every PNG, then
+        return its results."""
+        if mesh.world() > 1:
+            out = (self._generate(model_state, loader, save_dir, suppix)
+                   if mesh.is_main() else None)
+            return mesh.broadcast_object(out)
+        return self._generate(model_state, loader, save_dir, suppix)
+
+    def _generate(self, model_state, loader, save_dir, suppix):
         cfg = self.cfg
         if model_state is not None:
             self.model.load_state_dict(model_state)

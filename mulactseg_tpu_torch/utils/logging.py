@@ -11,6 +11,8 @@ import time
 from collections import defaultdict
 from typing import Dict, Optional
 
+from mulactseg_tpu_torch.parallel import mesh
+
 
 class TimeLogger:
     def __init__(self):
@@ -47,8 +49,14 @@ class AverageMeter:
 
 def get_file_logger(save_dir: str, name: str = "mulactseg_tpu_torch",
                     fname: str = "log_train.txt") -> logging.Logger:
-    os.makedirs(save_dir, exist_ok=True)
+    """The run's logger: INFO to save_dir/fname and the console. Under
+    data parallelism only rank 0 logs; the others keep warnings, on the
+    console."""
     logger = logging.getLogger(name)
+    if not mesh.is_main():
+        logger.setLevel(logging.WARNING)
+        return logger
+    os.makedirs(save_dir, exist_ok=True)
     logger.setLevel(logging.INFO)
     path = os.path.join(save_dir, fname)
     if not any(getattr(h, "baseFilename", None) == os.path.abspath(path)
@@ -64,13 +72,17 @@ def get_file_logger(save_dir: str, name: str = "mulactseg_tpu_torch",
 
 
 class MetricsSink:
-    """Always-on JSONL metric stream + optional wandb mirror."""
+    """Always-on JSONL metric stream + optional wandb mirror; under data
+    parallelism rank 0's alone (the others' log() writes nothing)."""
 
     def __init__(self, save_dir: str, use_wandb: bool = False,
                  wandb_kwargs: Optional[dict] = None):
+        self.path = None
+        self.wandb = None
+        if not mesh.is_main():
+            return
         os.makedirs(save_dir, exist_ok=True)
         self.path = os.path.join(save_dir, "metrics.jsonl")
-        self.wandb = None
         if use_wandb:
             try:
                 import wandb  # noqa: F401 - optional
@@ -80,6 +92,8 @@ class MetricsSink:
                 self.wandb = None
 
     def log(self, metrics: Dict[str, float], step: Optional[int] = None):
+        if self.path is None:
+            return
         rec = dict(metrics)
         if step is not None:
             rec["step"] = int(step)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mulactseg_tpu_torch.parallel import mesh
+
 
 def confusion_matrix(preds, targets, *, num_classes: int,
                      ignore_label: int) -> torch.Tensor:
@@ -84,6 +86,25 @@ class MeanIoU:
         self.extra_positive = self.extra_positive + torch.bincount(
             p[extra], minlength=C)[:C].cpu().numpy().astype(np.float64)
 
+    def confusion(self) -> np.ndarray:
+        """The (C, C) int64 confusion matrix counted so far."""
+        cm = self.cm_host.copy()
+        if self.cm is not None:
+            cm += self.cm.cpu().numpy()
+        return cm
+
+    def all_reduce(self, device) -> None:
+        """Under a process group, sum the confusion matrix and the extra
+        positives over the ranks (collectives on `device`, the rank's),
+        so that every rank's marginals count every rank's steps."""
+        if not mesh.active():
+            return
+        self.cm = mesh.all_reduce_sum(
+            torch.from_numpy(self.confusion()).to(device))
+        self.cm_host = np.zeros_like(self.cm_host)
+        self.extra_positive = mesh.all_reduce_sum(torch.from_numpy(
+            self.extra_positive).to(device)).cpu().numpy()
+
     def _marginals(self):
         cm = self.cm_host.astype(np.float64)
         if self.cm is not None:
@@ -144,6 +165,15 @@ class IoUIgnore:
         self.seen += int(is_ignore.sum())
         self.positive += int(is_pred.sum())
         self.correct += int((is_ignore & is_pred).sum())
+
+    def all_reduce(self, device) -> None:
+        """Under a process group, sum the counts over the ranks."""
+        if not mesh.active():
+            return
+        counts = mesh.all_reduce_sum(torch.tensor(
+            [self.seen, self.positive, self.correct], dtype=torch.int64,
+            device=device))
+        self.seen, self.positive, self.correct = (int(v) for v in counts)
 
     def _after_epoch(self):
         if self.seen == 0:

@@ -57,7 +57,9 @@ classes;
 top1_selection_counts on the card equal to the CPU's (K5 once an image);
 SlidingEval on a small float32 model, TF32 off, with 2 x 4 windows and
 with one centre-padded window, the summed logits within 1e-4 of the
-largest and the renormalised features within 1e-4 of the CPU's.
+largest and the renormalised features within 1e-4 of the CPU's. Data
+parallelism: two ranks sharing the card under gloo against one rank
+(BN, dropout, a fused step), as chip_smoke.py's dp phase.
 """
 
 import numpy as np
@@ -1116,3 +1118,66 @@ def test_sliding_eval_on_card_matches_cpu(dev, return_feat, monkeypatch):
             assert c.shape == g.shape and g.shape[-2:] == (H, W)
             scale = c.abs().max().item() if i == 0 else 1.0
             assert (c - g).abs().max().item() <= 1e-4 * scale
+
+
+def test_data_parallel_two_ranks_on_one_card(dev):
+    """Two ranks sharing the card (parallel.spawn, gloo with CUDA
+    tensors, each on cuda:<this card>) against this process alone, as
+    chip_smoke.py's dp phase holds them: FastBatchNorm's output, input
+    and parameter gradients and running statistics within rtol 1e-5,
+    atol 1e-6, the dropout mask the rows of one rank's; a fused
+    lossdecomp step of the small twin (float32, TF32 off) within the JAX
+    dryrun's bounds (loss 1e-3 relative, gradient cosine >= 0.99, norm
+    within 1e-2), K1-K4 once on each rank."""
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.parallel import mesh
+    import torch_port_parallel_ranks as ranks  # beside this file
+
+    card = f"cuda:{torch.cuda.current_device()}"
+    rng = np.random.RandomState(14)
+    B, H, nseg, C = 4, 65, 24, ranks.NC
+    x = (rng.randn(B, 6, 5, 5) * np.linspace(0.5, 2.0, B)[:, None, None, None]
+         + np.linspace(-1.0, 1.0, B)[:, None, None, None]).astype(np.float32)
+    bn_args = (x, rng.randn(*x.shape).astype(np.float32),
+               rng.uniform(0.5, 1.5, 6).astype(np.float32),
+               rng.uniform(-0.2, 0.2, 6).astype(np.float32), (B, 3, 5, 5),
+               card)
+    batch = _region_batch(rng, B, H, H, nseg, C)
+    batch["target_bits"] = np.stack([pixel_target_bits(
+        batch["target"][b], batch["spx"][b], batch["spmask"][b])
+        for b in range(B)])
+    batch["images"] = (rng.randn(B, 3, H, H)
+                       * np.linspace(0.5, 2.0, B)[:, None, None, None]
+                       ).astype(np.float32)
+    model = ranks.port_twin(separable=True)
+    convert.load_variables(model, convert.random_variables(model, 3))
+    cfg = Config(method="active_joint_multi_predignore_lossdecomp",
+                 optimizer="sgd", dtype="float32", num_classes=C - 1,
+                 nseg=nseg, crop_size=(H, H), train_batch_size=B)
+    jobs = [("bn", "bn_and_dropout", bn_args),
+            ("step", "train_steps", (model, cfg, [batch], card))]
+    two = mesh.spawn(ranks.run_all, 2, "gloo", card, jobs, timeout=120)
+    one = ranks.run_all(jobs)
+    for r, res in enumerate(two):
+        rows = mesh.local_rows(B, r, 2)
+        for k in ("y", "dx"):
+            np.testing.assert_allclose(res["bn"][k], one["bn"][k][rows],
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+        np.testing.assert_array_equal(res["bn"]["mask"],
+                                      one["bn"]["mask"][rows])
+        for k in ("dw", "db", "mean", "var"):
+            np.testing.assert_allclose(res["bn"][k], one["bn"][k],
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+        assert res["step"]["launches"] == {
+            k: 1 for k in ("pixel_ce_fwd", "pixel_ce_bwd", "ssm_fwd",
+                           "ssm_bwd")}
+        got = res["step"]["losses"][0]["train_loss"]
+        want = one["step"]["losses"][0]["train_loss"]
+        assert abs(got - want) <= 1e-3 * abs(want)
+        g = np.concatenate([a.ravel() for a in res["step"]["grads"].values()])
+        w = np.concatenate([a.ravel() for a in one["step"]["grads"].values()])
+        g, w = g.astype(np.float64), w.astype(np.float64)
+        assert g @ w / (np.linalg.norm(g) * np.linalg.norm(w)) >= 0.99
+        assert abs(np.linalg.norm(g) - np.linalg.norm(w)) <= \
+            1e-2 * np.linalg.norm(w)

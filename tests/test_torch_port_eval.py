@@ -146,8 +146,14 @@ def test_evaluator_loads_state_and_refuses_unported_options():
         for p in port.parameters():
             p.add_(1.0)
     assert Evaluator(port, cfg, device="cpu").run(sd, data) == want
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Evaluator(port, cfg, device="cpu").run(None, data, mesh=object())
+    # on several ranks (parallel/mesh.py) each rank counts its own whole
+    # batches, so a loader that hands every rank every batch is refused
+    from mulactseg_tpu_torch.parallel import mesh
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mesh, "world", lambda: 2)
+        with pytest.raises(ValueError, match="split='batches'"):
+            Evaluator(port, cfg, device="cpu").run(None, data)
     # the sliding arm (test_torch_port_sliding.py holds it against JAX)
     # sums the C real classes over the crop grid, so it takes no predignore
     slide = Evaluator(port, Config(num_classes=NC - 1, sliding_eval=True,

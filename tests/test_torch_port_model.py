@@ -24,23 +24,15 @@ from mulactseg_tpu.models.deeplab import DeepLabV3 as JaxDeepLab
 from mulactseg_tpu.models.resnet import ResNet as JaxResNet
 from mulactseg_tpu.models.torch_import import torch_state_dict_to_variables
 from mulactseg_tpu_torch.models import convert
-from mulactseg_tpu_torch.models.deeplab import DeepLabHeadV3Plus, DeepLabV3
 from mulactseg_tpu_torch.models.factory import get_model
 from mulactseg_tpu_torch.models.layers import Dropout
-from mulactseg_tpu_torch.models.resnet import ResNet
+from tests.torch_port_parallel_ranks import NC, port_twin
 
 torch.set_num_threads(1)
 
-NC = 7
-
 
 def twin_pair(separable):
-    port = DeepLabV3(
-        ResNet(layers=(2, 2, 2, 2), deep_stem=True, stem_width=16,
-               stage_planes=(16, 32, 64, 128)),
-        DeepLabHeadV3Plus(512, 64, NC, (6, 12, 18), variant="wn",
-                          separable=separable, low_channels=12,
-                          mid_channels=64))
+    port = port_twin(separable)
     ref = JaxDeepLab(
         backbone=JaxResNet(layers=(2, 2, 2, 2), deep_stem=True,
                            stem_width=16,
