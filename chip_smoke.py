@@ -158,6 +158,25 @@
    read just after. Its line: per world the backend, step ms, img/s, the
    gradient bytes all-reduced a step, peak GiB per rank, the deviations;
    the round's Jaccard, seconds, mIoUs, launches per rank.
+8g. Data parallelism for every other criterion and the analysis evals
+   (dp_criteria), after the evals phase (8e) and on its tree. Step 0 of
+   each criterion of CRITERIA_CASES and MORE_CRITERIA_CASES on the recipe
+   model from the seeded weights, global batch 4 at the stage-1 shape on
+   one more_regions batch (the async pair's weak view uncut), float32
+   with TF32 off: world 1 in this process without a group, then world 2
+   as two processes sharing the card under gloo, one warm-up step first
+   in each. Each criterion must hold the dp phase's float32 bounds (step
+   0's loss within 1e-3 relative, the gradient's cosine >= 0.99 and norm
+   within 1e-2), both ranks log the same losses, and K5 is launched k5
+   times an image: k5 * 4 at world 1, k5 * 2 on each rank (every counter
+   set to 0 just before each step and read just after). Then DPC_ANALYSIS
+   and the probe (the 19-class checkpoint, --train_batch_size 2) through
+   eval_al.main in bf16 at world 1 here and at world 2 (every rank
+   scoring whole images): the confusion matrices, mIoUs and the probe's
+   counts exactly equal, the overlays world 1's byte for byte and each
+   written once, K5 once an image on the rank that scores it. Its line:
+   per criterion the deviations, the step's ms on each rank at world 2
+   and at world 1, K5 per rank; per eval the seconds and K5 per rank.
 8b. The recipe's three commands over files (cli_recipe): a Cityscapes-
    format tree written by tools/cityscapes_tree.py (CLI_TRAIN training
    and CLI_VAL validation images at 1024x2048, adaptive-filtered RGB PNGs,
@@ -296,7 +315,8 @@ Prints, at the end and in compact JSON (about 37 kB in all: send the
 output to a file where only a tail of it comes back), the slices'
 numbers (the zoo and criteria lines, items 8.1-8.2; the cli_recipe line,
 item 8b; the loader_arms line, item 8d; the voc_recipe line, item 8c;
-the evals line, item 8e; the dp line, item 8f; evaluation;
+the evals line, item 8e; the dp line, item 8f; the dp_criteria line,
+item 8g; evaluation;
 stage 1 at both nseg; plbl; the al_rounds line: per round the selection
 seconds, train img/s, validations, eval mIoU, checkpoint save and load
 seconds; then plbl img/s, stage-2 img/s and mIoU, peak memory and the
@@ -327,6 +347,7 @@ import tempfile
 import time
 from collections import Counter
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -388,6 +409,9 @@ EV_CROP, EV_HW = 64, (96, 160)
 # processes sharing the card), one active-learning round at world 2 with
 # DP_ITRS stage-1 and stage-2 steps; every group joined within DP_TIMEOUT s
 DP_STEPS, DP_SGD_STEPS, DP_ITRS, DP_TIMEOUT = 6, 3, 4, 400
+# the criteria's data-parallel phase: two cosine-backed analysis methods
+# (the first writes overlays) and the probe through eval_al at world 2
+DPC_ANALYSIS = ("eval_vistopone_within_multihot", "eval_all_cosplbl_prop")
 TIMING_RUNS, REPEATS = 20, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -3325,7 +3349,8 @@ def evals_slice(variables, dev, smi, workdir):
     probe's instances; then the commands through eval_al.main and
     train_al.main, every launch counter set to 0 just before each and read
     just after. Returns (the evals line, the path's launches, the kernels
-    rows)."""
+    rows, the tree: the commands' common arguments, the two checkpoints
+    and the number of labelled images)."""
     from mulactseg_tpu_torch.cli import eval_al, train_al
     from mulactseg_tpu_torch.cli.common import build_active_datasets
     from mulactseg_tpu_torch.config import parse_config
@@ -3722,7 +3747,8 @@ def evals_slice(variables, dev, smi, workdir):
     total = Counter()
     for v in launches.values():
         total.update(v)
-    return line, dict(total), rows_k5
+    tree = {"common": common, "ck": ck, "ck19": ck19, "images": n_img}
+    return line, dict(total), rows_k5, tree
 
 
 def small_selector_check(dev, variables):
@@ -4189,6 +4215,264 @@ def dp_slice(variables, dev, smi, workdir, backend1="nccl",
     return line, dict(launches)
 
 
+# -- the criteria's data-parallel phase (dp_criteria) -------------------------
+def dpc_steps(variables, cases, batch, common, device, grad_dir=None):
+    """Step 0 of each (case, method, over, k5) of cases on the recipe model
+    from the seeded `variables`, float32 with TF32 off, on this rank's rows
+    of the global `batch` (as criteria_batch gives it to the case), Config
+    keywords `common`, after one warm-up step of the first case. Per case
+    the logged (global) losses, the step's ms and this rank's launches,
+    every counter set to 0 just before the step and read just after. The
+    step-0 gradient (summed over the ranks) as a flat float32 CPU tensor:
+    returned without a group; in a group rank 0 writes it to
+    grad_dir/<case>.pt as soon as it has it (the gradients of all cases
+    would not fit one pickle)."""
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.engine.train import make_train_step
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.ops import _build
+    from mulactseg_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    model = _dp_model(variables, dev)
+    rows = mesh.local_rows(len(batch["images"]))
+    out = {}
+    for i, (case, method, over, _) in enumerate([cases[0]] + list(cases)):
+        cfg = Config(num_classes=NUM_CLASSES - 1, dtype="float32",
+                     separable_conv=True, method=method, **common, **over)
+        b = {k: v[rows] for k, v in criteria_batch(batch, method,
+                                                   case).items()}
+        convert.load_variables(model, variables)
+        step = make_train_step(model, cfg, device=dev,
+                               generator=torch.Generator(dev).manual_seed(0))
+        _sync(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        aux = step(b)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.LAUNCHES)
+        del step
+        if i == 0:  # the warm-up step
+            continue
+        rec = {"losses": {k: float(v) for k, v in aux.items()}, "ms": ms,
+               "launches": launches}
+        grad = _flat_grads(model)
+        if not mesh.active():
+            rec["grad0"] = grad
+        elif mesh.is_main():
+            tmp = os.path.join(grad_dir, f".{case}.pt")
+            torch.save(grad, tmp)
+            os.replace(tmp, os.path.join(grad_dir, f"{case}.pt"))
+        out[case] = rec
+    return out
+
+
+def dpc_evals(argvs, device):
+    """cli.eval_al.main(argv, device) for each argv on this rank (of a
+    group, or the process alone), every launch counter set to 0 just
+    before and read just after: per run the evaluator's result
+    (AnalysisEvaluator's with its confusion matrix, or the probe's
+    counts), the overlay files this rank wrote, its launches."""
+    from mulactseg_tpu_torch.cli import eval_al
+    from mulactseg_tpu_torch.engine import analysis
+    from mulactseg_tpu_torch.ops import _build
+
+    out = []
+    for argv in argvs:
+        results, written = [], []
+
+        def capture(cls):
+            real = cls.run
+
+            def run(self, *a, **k):
+                res = real(self, *a, **k)
+                results.append({**res, "confusion": getattr(
+                    self, "confusion", None)})
+                return res
+            return mock.patch.object(cls, "run", run)
+
+        def overlay(cfg, labels, spx_map, path, dev,
+                    _real=analysis.save_overlay):
+            written.append(os.path.basename(path))
+            return _real(cfg, labels, spx_map, path, dev)
+
+        with capture(analysis.AnalysisEvaluator), \
+                capture(analysis.SelectionAccuracyEvaluator), \
+                mock.patch.object(analysis, "save_overlay", overlay):
+            _sync(device)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            eval_al.main(argv, device=device)
+            _sync(device)
+        out.append({"result": results[0], "overlays": written,
+                    "s": time.perf_counter() - t0,
+                    "launches": dict(_build.LAUNCHES)})
+    return out
+
+
+def dp_criteria_slice(variables, dev, smi, workdir, tree, backend="gloo"):
+    """The criteria's data-parallel main path (docstring, item 8g): step 0
+    of every criterion of CRITERIA_CASES and MORE_CRITERIA_CASES at world
+    2 (two processes sharing the card, each with device `dev`, under
+    `backend`) against world 1 (this process without a group), float32
+    with TF32 off; then DPC_ANALYSIS and the probe through eval_al.main at
+    world 2 against world 1 on the evals phase's tree (`tree`: its
+    command's common arguments and checkpoints). Returns (the dp_criteria
+    line, the path's launches over both worlds and the ranks)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mulactseg_tpu_torch.parallel import mesh
+
+    device = str(dev)
+    batch = more_regions(with_regions(make_batches(1, seed=9), 13), 17)[0]
+    cases = list(CRITERIA_CASES + MORE_CRITERIA_CASES)
+    common = {"nseg": NSEG, "crop_size": (H, W), "train_batch_size": B,
+              "small_nseg": SMALL_NSEG}
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    t0 = time.perf_counter()
+    try:
+        w1 = dpc_steps(variables, cases, batch, common, device)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    w1_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # world 2; rank 0's gradients are held against world 1's as they come
+    grad_dir = os.path.join(workdir, "dp_criteria_grads")
+    os.makedirs(grad_dir)
+    grads = {}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(mesh.spawn, dpc_steps, 2, backend, device,
+                          variables, cases, batch, common, device, grad_dir,
+                          timeout=DP_TIMEOUT)
+        for case, *_ in cases:
+            path = os.path.join(grad_dir, f"{case}.pt")
+            while not os.path.exists(path):
+                if fut.done():
+                    fut.result()  # raises the ranks' failure
+                    check(False, f"dp_criteria: no world-2 gradient of {case}")
+                time.sleep(0.05)
+            grads[case] = _grad_stats(torch.load(path),
+                                      w1[case].pop("grad0"))
+            os.remove(path)
+        w2 = fut.result()
+    w2_s = time.perf_counter() - t0
+
+    out, launches = {}, Counter()
+    for case, method, _, k5 in cases:
+        one, mine = w1[case], [w2[r][case] for r in range(2)]
+        want1 = {"seg_max_fwd": k5 * B} if k5 else {}
+        want2 = {"seg_max_fwd": k5 * B // 2} if k5 else {}
+        check(one["launches"] == want1, f"dp_criteria {case}: world 1 "
+              f"launches {one['launches']}, want {want1}")
+        for r, res in enumerate(mine):
+            check(res["launches"] == want2, f"dp_criteria {case}: rank {r} "
+                  f"launches {res['launches']}, want {want2}")
+            check(res["losses"] == mine[0]["losses"],
+                  f"dp_criteria {case}: rank {r} logged other losses")
+            launches += Counter(res["launches"])
+        launches += Counter(one["launches"])
+        l2, l1 = mine[0]["losses"], one["losses"]
+        check(l2.keys() == l1.keys() and all(
+            math.isfinite(v) for v in list(l1.values()) + list(l2.values())),
+            f"dp_criteria {case}: losses {l2} against {l1}")
+        cos, norm_dev = grads[case]
+        rec = {"method": method,
+               "loss_dev": abs(l2["train_loss"] - l1["train_loss"])
+               / abs(l1["train_loss"]),
+               "part_devs": {k: abs(l2[k] - v) / max(abs(v), 1e-12)
+                             for k, v in l1.items()},
+               "grad_cos": cos, "grad_norm_dev": norm_dev,
+               "world2_step_ms": [r["ms"] for r in mine],
+               "world1_step_ms": one["ms"],
+               "k5_per_rank": [r["launches"].get("seg_max_fwd", 0)
+                               for r in mine],
+               "k5_world1": one["launches"].get("seg_max_fwd", 0),
+               "train_loss": l1["train_loss"]}
+        print(f"dp criterion {case}: {json.dumps(rec)}", flush=True)
+        check(rec["loss_dev"] < 1e-3 and cos >= 0.99 and norm_dev < 1e-2,
+              f"dp_criteria {case}: world 2 outside the JAX dryrun's "
+              f"bounds: {rec}")
+        out[case] = rec
+
+    # the analysis evals and the probe through eval_al at both widths
+    def argvs(run):
+        base = list(tree["common"])
+        base[base.index("-p") + 1] = run
+        cut = ["--num_workers", "0", "--val_num_workers", "0"]
+        return [base + cut + ["--init_checkpoint", tree["ck"],
+                              "--resume_checkpoint", tree["ck"],
+                              "--method", m] for m in DPC_ANALYSIS] + [
+            base + cut + ["--init_checkpoint", tree["ck19"],
+                          "--resume_checkpoint", tree["ck19"],
+                          "--train_batch_size", "2",
+                          "--method", "active_joint_multi_analysis"]]
+
+    runs = [os.path.join(workdir, f"dpc_w{w}") for w in (1, 2)]
+    t0 = time.perf_counter()
+    e1 = dpc_evals(argvs(runs[0]), device)
+    e1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e2 = mesh.spawn(dpc_evals, 2, backend, device, argvs(runs[1]), device,
+                    timeout=DP_TIMEOUT)
+    e2_s = time.perf_counter() - t0
+    evals = {}
+    names = list(DPC_ANALYSIS) + ["active_joint_multi_analysis"]
+    n_img = tree["images"]
+    for i, name in enumerate(names):
+        one, mine = e1[i], [e2[r][i] for r in range(2)]
+        check(one["launches"] == {"seg_max_fwd": n_img},
+              f"dp_criteria {name}: world 1 launches {one['launches']}")
+        launches += Counter(one["launches"])
+        probe = name == "active_joint_multi_analysis"
+        keys = (("ncorr_cls", "n_cls", "ncorr_total", "n_total", "acc_total")
+                if probe else ("confusion", "miou"))
+        for r, res in enumerate(mine):
+            check(res["launches"] == {"seg_max_fwd": n_img // 2},
+                  f"dp_criteria {name}: rank {r} launches {res['launches']}")
+            launches += Counter(res["launches"])
+            for k in keys:
+                check(np.array_equal(res["result"][k], one["result"][k]),
+                      f"dp_criteria {name}: rank {r} {k} "
+                      f"{res['result'][k]}, world 1 {one['result'][k]}")
+        rec = {"world1_s": one["s"], "world2_s": [r["s"] for r in mine],
+               "k5_per_rank": [r["launches"].get("seg_max_fwd", 0)
+                               for r in mine],
+               "result": float(one["result"]["acc_total" if probe
+                                             else "miou"])}
+        vis = f"vis_{name}_02"
+        if os.path.isdir(os.path.join(runs[0], vis)):
+            files = sorted(os.listdir(os.path.join(runs[0], vis)))
+            written = sorted(p for r in mine for p in r["overlays"])
+            check(len(files) == n_img and written == files and sorted(
+                os.listdir(os.path.join(runs[1], vis))) == files,
+                f"dp_criteria {name}: overlays {written}, world 1 {files}")
+            for f in files:
+                with open(os.path.join(runs[0], vis, f), "rb") as a, \
+                        open(os.path.join(runs[1], vis, f), "rb") as b:
+                    check(a.read() == b.read(),
+                          f"dp_criteria {name}: overlay {f} differs")
+            rec["overlays_equal"] = len(files)
+        print(f"dp eval {name}: {json.dumps(rec)}", flush=True)
+        evals[name] = rec
+    line = {"dp_criteria": {
+        "card": smi, "config": f"deeplabv3pluswn_resnet50deepstem "
+        f"separable, {NUM_CLASSES} outputs, float32 (TF32 off), global "
+        f"batch {B}, {H}x{W}, nseg {NSEG}, weak view {WEAK_HW[0]}x"
+        f"{WEAK_HW[1]}; world 2: two processes on one card under "
+        f"{backend}; evals: the evals phase's tree ({n_img} labelled "
+        f"images at {PH}x{PW}), bf16",
+        "criteria": out, "evals": evals, "world1_s": w1_s,
+        "world2_s": w2_s, "evals_world1_s": e1_s, "evals_world2_s": e2_s}}
+    return line, dict(launches)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available()"
@@ -4356,9 +4640,15 @@ def main():
     # instances held first, then the small card-against-CPU checks
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        evals_line, evals_launches, evals_rows = evals_slice(
+        evals_line, evals_launches, evals_rows, ev_tree = evals_slice(
             variables, dev, smi, tmp)
-    shutdown_workers()
+        shutdown_workers()
+        # every criterion and the analysis evals at world 2 (two ranks
+        # sharing the card under gloo), the evals on the evals' tree
+        torch.cuda.empty_cache()
+        dpc_line, dpc_launches = dp_criteria_slice(
+            variables, torch.device("cuda", torch.cuda.current_device()),
+            smi, tmp, ev_tree)
     convert.load_variables(model, variables)
     evals_line["evals"]["small_sliding_rel_err"] = small_evals_check(model,
                                                                      dev)
@@ -4387,7 +4677,8 @@ def main():
                "al_rounds": al_launches, "cli_recipe": cli_launches,
                "voc": voc_launches, "zoo": zoo_launches,
                "criteria": crit_launches, "loader_arms": arms_launches,
-               "evals": evals_launches, "dp": dp_launches}
+               "evals": evals_launches, "dp": dp_launches,
+               "dp_criteria": dpc_launches}
     launches = sum((Counter(n) for n in by_path.values()), Counter())
     check(all(launches[name] > 0 for name in KERNELS),
           f"a kernel was never launched on a main path: {dict(launches)}")
@@ -4395,7 +4686,7 @@ def main():
     # every slice's line at the end, the kernels line and the card last
     compact = {"separators": (",", ":")}
     for line in (zoo_line, crit_line, cli_line, arms_line, voc_line,
-                 evals_line, dp_line, eval_stats):
+                 evals_line, dp_line, dpc_line, eval_stats):
         print(json.dumps(line, **compact))
     print(json.dumps({
         "slice": "cityscapes stage-1 train step", "card": smi,

@@ -19,9 +19,10 @@ of mulactseg_tpu/cli/eval_al.py:
         --method eval_cosplbl_within_multihot \\
         --datalist_path datalist_02.json ...
 
-Under torchrun the plain eval splits the images over the ranks, rank 0
-alone pseudo-labels while the others wait, and the analysis evals
-refuse to run (ROADMAP.md queue A, item 17b).
+Under torchrun the plain eval, the analysis evals and the probe split
+the images over the ranks (whole images, each rank's overlays written by
+it; the matrices and counts summed over the ranks), and rank 0 alone
+pseudo-labels while the others wait.
 
 The PNGs go to plbl_gen_<type>/round_<NN> beside --resume_checkpoint,
 where train_stage2 reads them; an analysis eval's overlays to
@@ -72,9 +73,10 @@ def _labelled_set(cfg, active_set):
     return active_set.trg_label_dataset
 
 
-def _provider(ds, batch, cfg):
+def _provider(ds, batch, cfg, split=None):
     return DataProvider(ds, batch, shuffle=False, drop_last=False,
-                        infinite=False, num_workers=cfg.val_num_workers)
+                        infinite=False, num_workers=cfg.val_num_workers,
+                        split=split)
 
 
 def main(argv=None, device="cuda"):
@@ -93,18 +95,12 @@ def main(argv=None, device="cuda"):
     if ckpt:
         trainer.load(ckpt)
 
-    if mesh.world() > 1 and (cfg.method == "active_joint_multi_analysis"
-                             or cfg.method in ANALYSIS_METHODS):
-        raise NotImplementedError(
-            f"{cfg.method} runs on one rank; launch it without torchrun "
-            "(the analysis evals on several ranks: ROADMAP.md queue A, "
-            "item 17b)")
     if cfg.method == "active_joint_multi_analysis":
         # top-1 selection accuracy over the labelled set
         # (trainer/active_joint_multi_analysis.py:27-102)
         label_ds = _labelled_set(cfg, active_set)
         label_ds.load_gt = True  # the probe reads the precise GT
-        loader = _provider(label_ds, cfg.train_batch_size, cfg)
+        loader = _provider(label_ds, cfg.train_batch_size, cfg, "batches")
         try:
             res = SelectionAccuracyEvaluator(
                 trainer.model, cfg, device=device).run(
@@ -146,7 +142,7 @@ def main(argv=None, device="cuda"):
         save_dir = (os.path.join(cfg.model_save_dir,
                                  f"vis_{cfg.method}_{cfg.init_iteration:02d}")
                     if cfg.save_vis or opts.get("save_vis") else None)
-        loader = _provider(eval_ds, 1, cfg)
+        loader = _provider(eval_ds, 1, cfg, "batches")
         try:
             res = AnalysisEvaluator(trainer.model, cfg, cfg.method,
                                     device=device).run(

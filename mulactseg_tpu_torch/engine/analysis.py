@@ -27,7 +27,12 @@ pixel of highest softmax probability of that class is that class. The
 (superpixel, class) max and its first pixel are K5
 (ops/segment_max.seg_max_fwd), once an image.
 
-Every entry point runs on the card unless asked for the CPU.
+Every entry point runs on the card unless asked for the CPU. Under data
+parallelism (parallel/mesh.py) each rank scores the whole images of its
+batches (DataProvider(split="batches"), as engine/evaluate.Evaluator
+takes them), writes their overlays, and the confusion matrices and the
+probe's counts are summed over the ranks: every rank reports exactly
+what one rank counts.
 """
 
 from __future__ import annotations
@@ -39,8 +44,12 @@ import numpy as np
 import torch
 
 from mulactseg_tpu_torch.device import resolve_device
-from mulactseg_tpu_torch.engine.evaluate import eval_forward
+from mulactseg_tpu_torch.engine.evaluate import (
+    eval_forward,
+    require_batch_split,
+)
 from mulactseg_tpu_torch.ops.segment_max import seg_max_fwd
+from mulactseg_tpu_torch.parallel import mesh
 from mulactseg_tpu_torch.plbl.generator import (
     PseudoLabelGenerator,
     save_overlay,
@@ -91,7 +100,7 @@ class AnalysisEvaluator:
     batches). run() returns 'miou' and 'iou_table', with
     'precision_table' and 'recall_table' where the method reports them
     and 'ignore_iou' for eval_naive_vis on a model with the undefined
-    head."""
+    head, and keeps the summed confusion matrix in self.confusion."""
 
     def __init__(self, model: torch.nn.Module, cfg, method: str,
                  device="cuda"):
@@ -107,11 +116,15 @@ class AnalysisEvaluator:
         self.gen = (PseudoLabelGenerator(model, cfg, self.opts["plbl"],
                                          device=self.dev)
                     if "plbl" in self.opts else None)
+        self.confusion = None
 
     def run(self, model_state, loader: Iterable, *,
             suppix: Optional[dict] = None, prev_suppix: Optional[dict] = None,
             save_dir: Optional[str] = None, logger=None) -> Dict:
-        """model_state: a state_dict to load first, or None."""
+        """model_state: a state_dict to load first, or None. On several
+        ranks loader is a DataProvider(split="batches"); each overlay is
+        written by the rank that scores its image."""
+        require_batch_split(loader, "AnalysisEvaluator.run")
         cfg, opts = self.cfg, self.opts
         if model_state is not None:
             self.model.load_state_dict(model_state)
@@ -168,6 +181,10 @@ class AnalysisEvaluator:
                              os.path.join(save_dir, f"{lbl_id}.png"),
                              self.dev)
 
+        iou.all_reduce(self.dev)
+        if ignore_iou is not None:
+            ignore_iou.all_reduce(self.dev)
+        self.confusion = iou.confusion()
         out: Dict = {}
         if opts.get("ipr"):
             ious, precs, recs = iou._after_epoch_ipr()
@@ -248,7 +265,11 @@ class SelectionAccuracyEvaluator:
             logger=None) -> Dict:
         """model_state: a state_dict to load first, or None. loader yields
         'images', 'target' (B, S, C+1), 'spx', 'spmask' and 'labels' (the
-        precise GT)."""
+        precise GT); on several ranks it is a DataProvider(split=
+        "batches"), and the counts are summed over the ranks. Returns
+        acc_total, acc_cls and the counts ncorr_cls, n_cls, ncorr_total
+        and n_total."""
+        require_batch_split(loader, "SelectionAccuracyEvaluator.run")
         cfg = self.cfg
         if model_state is not None:
             self.model.load_state_dict(model_state)
@@ -269,6 +290,13 @@ class SelectionAccuracyEvaluator:
             n_cls += nc.cpu().numpy()
             ncorr_total += float(ct)
             n_total += float(nt)
+        if mesh.active():  # float64 sums of integer counts: exact
+            counts = mesh.all_reduce_sum(torch.from_numpy(np.concatenate(
+                [ncorr_cls, n_cls, [ncorr_total, n_total]])).to(self.dev))
+            counts = counts.cpu().numpy()
+            C = cfg.num_classes
+            ncorr_cls, n_cls = counts[:C], counts[C:2 * C]
+            ncorr_total, n_total = float(counts[-2]), float(counts[-1])
         acc_total = ncorr_total / max(n_total, 1.0)
         with np.errstate(invalid="ignore", divide="ignore"):
             acc_cls = ncorr_cls / n_cls
@@ -277,7 +305,8 @@ class SelectionAccuracyEvaluator:
             ",".join(str(a) for a in acc_cls.tolist()))
         if logger is not None:
             logger.info(msg)
-        else:
+        elif mesh.is_main():
             print(msg, flush=True)
         return {"acc_total": acc_total, "acc_cls": acc_cls,
-                "n_cls": n_cls, "n_total": n_total}
+                "ncorr_cls": ncorr_cls, "n_cls": n_cls,
+                "ncorr_total": ncorr_total, "n_total": n_total}

@@ -33,6 +33,15 @@ from mulactseg_tpu_torch.parallel import mesh
 from mulactseg_tpu_torch.utils.metrics import IoUIgnore, MeanIoU
 
 
+def require_batch_split(loader, who: str) -> None:
+    """On several ranks an evaluator counts its own images: its loader
+    must be a DataProvider(split="batches")."""
+    if mesh.world() > 1 and getattr(loader, "split", None) != "batches":
+        raise ValueError(
+            f"on {mesh.world()} ranks {who} takes a DataProvider("
+            "split='batches'), so that each rank counts its own batches")
+
+
 def eval_forward(model, images, dev, autocast: bool, **kw):
     """Eval-mode, gradient-free forward of NCHW images (uint8 or float32)
     on `dev`; returns what the model returns (float32 NCHW logits, or
@@ -70,11 +79,7 @@ class Evaluator:
         int; on several ranks a DataProvider(split="batches"). Returns
         (miou, iou_table_str) like trainer/base.py:161-175, and keeps the
         summed (C, C) confusion matrix in self.confusion."""
-        if mesh.world() > 1 and getattr(loader, "split", None) != "batches":
-            raise ValueError(
-                f"on {mesh.world()} ranks Evaluator.run takes a "
-                "DataProvider(split='batches'), so that each rank counts "
-                "its own batches")
+        require_batch_split(loader, "Evaluator.run")
         cfg = self.cfg
         if model_state is not None:
             self.model.load_state_dict(model_state)

@@ -21,10 +21,11 @@ dispatch latency and has no counterpart here.
 
 Under data parallelism (parallel/mesh.py) each rank steps on its rows of
 the global batch: the weights are broadcast from rank 0 when the step is
-made, BN and the loss normalisers see the global batch, the gradients
-are summed over the ranks before the optimizer, and the NaN guard and
-the logged losses read the global loss. Only DP_CRITERIA normalise so;
-the others raise on several ranks.
+made, BN and every criterion's normalisers see the global batch
+(losses/), the gradients are summed over the ranks before the optimizer,
+and the NaN guards and the logged losses read the global loss. The
+eval-mode forwards of the needs_feat and needs_weak_forward criteria
+run on each rank's rows alone (BN in eval mode needs no collective).
 """
 
 from __future__ import annotations
@@ -75,16 +76,12 @@ from mulactseg_tpu_torch.utils.schedule import ramp_up
 _REGION = ("target", "spx", "spmask")
 
 
-def _zero_if_nan(x):
-    return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
-
-
 def _zero_if_nan_global(x):
-    """_zero_if_nan decided on the loss summed over the ranks, so that
-    under data parallelism every rank keeps or zeroes its share of the
-    global loss together, as one rank would."""
-    return torch.where(torch.isfinite(mesh.all_reduce_sum(x.detach())), x,
-                       torch.zeros_like(x))
+    """x, or 0 where it is not finite (the reference's zero_if_nan),
+    decided on x summed over the ranks: under data parallelism every rank
+    keeps or zeroes its share of the global loss together, as one rank
+    holding the whole batch would."""
+    return torch.where(mesh.global_isfinite(x), x, torch.zeros_like(x))
 
 
 def _args(logits, batch):
@@ -99,7 +96,7 @@ def _joint_loss(cfg, slice_last):
                                      slice_last=slice_last)
         pos = multi_choice_ce(*_args(logits, batch), temp=cfg.multi_ce_temp,
                               slice_last=slice_last)
-        group, pos = _zero_if_nan(group), _zero_if_nan(pos)
+        group, pos = _zero_if_nan_global(group), _zero_if_nan_global(pos)
         total = cfg.coeff * pos + cfg.coeff_gm * group
         return total, {"train_loss": total, "pos_loss": pos,
                        "group_loss": group}
@@ -118,12 +115,6 @@ def _lossdecomp_loss(cfg):
                 coeff_gm=cfg.coeff_gm, multi_ce_temp=cfg.multi_ce_temp,
                 group_ce_temp=cfg.group_ce_temp)
         else:
-            if mesh.world() > 1:
-                raise NotImplementedError(
-                    f"{cfg.method} on a batch without target bits (the "
-                    "unfused lossdecomp) normalises over one rank's rows: "
-                    "data parallelism for it is ROADMAP.md queue A, item "
-                    "17b")
             total, aux = lossdecomp(
                 *_args(logits, batch), nseg=cfg.nseg, coeff=cfg.coeff,
                 coeff_mc=cfg.coeff_mc, coeff_gm=cfg.coeff_gm,
@@ -144,8 +135,8 @@ def _mclossablation2_loss(cfg):
         ce, _ = onehot_ce_multihot_choice(*_args(logits, batch),
                                           temp=cfg.multi_ce_temp)
         total = cfg.coeff * ce + cfg.coeff_gm * group
-        return _zero_if_nan(total), {"train_loss": total, "ce_loss": ce,
-                                     "group_loss": group}
+        return _zero_if_nan_global(total), {
+            "train_loss": total, "ce_loss": ce, "group_loss": group}
     fn.keys = _REGION
     return fn
 
@@ -164,9 +155,9 @@ def _precise_loss(cfg, with_group=True):
     """Oracle trainers: CE on the batch's labels plus the group or the MC
     term (train.py:116-135)."""
     def fn(logits, batch):
-        ce = _zero_if_nan(cross_entropy(logits, batch["labels"],
-                                        temp=cfg.ce_temp,
-                                        ignore_index=cfg.ignore_idx))
+        ce = _zero_if_nan_global(cross_entropy(
+            logits, batch["labels"], temp=cfg.ce_temp,
+            ignore_index=cfg.ignore_idx))
         if with_group:
             other = group_multi_label_ce(*_args(logits, batch),
                                          nseg=cfg.nseg,
@@ -195,7 +186,8 @@ def _multient_loss(cfg):
                               slice_last=False)
         ent = multi_choice_ent(*args, temp=cfg.multi_ce_temp,
                                slice_last=False)
-        total = cfg.coeff * pos + group + cfg.entcoeff * _zero_if_nan(ent)
+        total = (cfg.coeff * pos + group
+                 + cfg.entcoeff * _zero_if_nan_global(ent))
         return total, {"train_loss": total, "pos_loss": pos,
                        "group_loss": group, "ent_loss": ent}
     fn.keys = _REGION
@@ -211,8 +203,8 @@ def _exclusivece_loss(cfg):
                                      slice_last=False)
         pos = exclusive_ce(*args)
         total = cfg.coeff * pos + cfg.coeff_gm * group
-        return _zero_if_nan(total), {"train_loss": total, "pos_loss": pos,
-                                     "group_loss": group}
+        return _zero_if_nan_global(total), {
+            "train_loss": total, "pos_loss": pos, "group_loss": group}
     fn.keys = _REGION
     return fn
 
@@ -227,8 +219,9 @@ def _lossdecomp_variant(mc_fn):
                                          slice_last=False, only_multi=True)
             ce, mc = mc_fn(*args, temp=cfg.multi_ce_temp)
             total = cfg.coeff * ce + cfg.coeff_mc * mc + cfg.coeff_gm * group
-            return _zero_if_nan(total), {"train_loss": total, "ce_loss": ce,
-                                         "mc_loss": mc, "group_loss": group}
+            return _zero_if_nan_global(total), {
+                "train_loss": total, "ce_loss": ce, "mc_loss": mc,
+                "group_loss": group}
         fn.keys = _REGION
         return fn
     return build
@@ -243,8 +236,8 @@ def _pos_plus_group(cfg, pos_fn):
                                      slice_last=False)
         pos = pos_fn(*args, temp=cfg.multi_ce_temp)
         total = cfg.coeff * pos + cfg.coeff_gm * group
-        return _zero_if_nan(total), {"train_loss": total, "pos_loss": pos,
-                                     "group_loss": group}
+        return _zero_if_nan_global(total), {
+            "train_loss": total, "pos_loss": pos, "group_loss": group}
     fn.keys = _REGION
     return fn
 
@@ -269,8 +262,9 @@ def _top1plbl_loss(cfg):
             batch["spmask"], temp=1.0, within_filtering=cfg.within_filtering,
             threshold=cfg.plbl_th)
         total = cfg.coeff * pos + group + _ramp(cfg, extra["frac"]) * top1
-        return _zero_if_nan(total), {"train_loss": total, "pos_loss": pos,
-                                     "group_loss": group, "top1_loss": top1}
+        return _zero_if_nan_global(total), {
+            "train_loss": total, "pos_loss": pos, "group_loss": group,
+            "top1_loss": top1}
     fn.keys = _REGION
     fn.needs_feat = True
     return fn
@@ -295,7 +289,7 @@ def _pwce_loss(cfg):
             nseg=cfg.nseg, simw_temp=simw_temp) for b in range(B)])
         total = prototype_weighted_ce(logits, w, batch["spmask"],
                                       temp=cfg.group_ce_temp)
-        return _zero_if_nan(total), {"train_loss": total}
+        return _zero_if_nan_global(total), {"train_loss": total}
     fn.keys = _REGION
     fn.needs_feat = True
     return fn
@@ -311,8 +305,8 @@ def _wgroup_loss(cfg):
         pos = multi_choice_ce(*_args(logits, batch), temp=cfg.multi_ce_temp,
                               slice_last=False)
         total = cfg.coeff * pos + cfg.coeff_gm * group
-        return _zero_if_nan(total), {"train_loss": total, "pos_loss": pos,
-                                     "group_loss": group}
+        return _zero_if_nan_global(total), {
+            "train_loss": total, "pos_loss": pos, "group_loss": group}
     fn.keys = _REGION
     fn.needs_feat = True
     return fn
@@ -344,8 +338,8 @@ def _hier_joint_loss(cfg, async_views=False, weight_reduce=None):
                 batch["spmask"], nseg=cfg.nseg, small_nseg=cfg.small_nseg,
                 temp=cfg.group_ce_temp, only_single=cfg.group_only_single)
         total = cfg.coeff * pos + cfg.coeff_gm * hier
-        return _zero_if_nan(total), {"train_loss": total, "pos_loss": pos,
-                                     "group_loss": hier}
+        return _zero_if_nan_global(total), {
+            "train_loss": total, "pos_loss": pos, "group_loss": hier}
     fn.keys = _REGION + ("spx_small",)
     if async_views:
         fn.keys += ("images_weak", "spx_weak", "spmask_weak",
@@ -408,7 +402,7 @@ def _online_plbl_loss(cfg, weighted=False, only_plbl=False, do_mc=False,
             total = total + cfg.coeff_gm * group
             terms["group_loss"] = group
         terms["train_loss"] = total
-        return _zero_if_nan(total), terms
+        return _zero_if_nan_global(total), terms
     fn.keys = _REGION
     fn.needs_feat = True
     return fn
@@ -428,7 +422,7 @@ def _mseg_loss(cfg):
             logits, [batch[k] for k in targets], batch["mseg_spx"],
             batch["mseg_spmask"], nseg_list=nseg_list, coeff=cfg.coeff,
             multi_ce_temp=cfg.multi_ce_temp, group_ce_temp=1.0)
-        return _zero_if_nan(total), aux
+        return _zero_if_nan_global(total), aux
     fn.keys = ("mseg_spx", "mseg_spmask") + targets
     return fn
 
@@ -450,7 +444,7 @@ def _ablation_loss(cfg):
             raise NotImplementedError(cfg.loss_type)
         group = group_multi_label_ce(*args, nseg=cfg.nseg,
                                      temp=cfg.group_ce_temp, slice_last=True)
-        pos, group = _zero_if_nan(pos), _zero_if_nan(group)
+        pos, group = _zero_if_nan_global(pos), _zero_if_nan_global(group)
         total = cfg.coeff * pos + group
         return total, {"train_loss": total, "pos_loss": pos,
                        "group_loss": group}
@@ -467,11 +461,12 @@ def _sequence_loss(cfg):
         ce_sum, ce_num, mc_sum, mc_num = plbl_onehot_ce_multihot_choice(
             *_args(logits, batch), batch["labels"], temp=cfg.multi_ce_temp,
             ignore_idx=cfg.ignore_idx)
-        pos = (ce_sum + mc_sum) / (ce_num + mc_num).clamp(min=1)
+        pos = (ce_sum + mc_sum) / (ce_num + mc_num).clamp(min=1).to(
+            ce_sum.dtype)
         group = group_multi_label_ce(*_args(logits, batch), nseg=cfg.nseg,
                                      temp=cfg.group_ce_temp,
                                      slice_last=False)
-        pos, group = _zero_if_nan(pos), _zero_if_nan(group)
+        pos, group = _zero_if_nan_global(pos), _zero_if_nan_global(group)
         total = cfg.coeff * pos + group
         return total, {"train_loss": total, "pos_loss": pos,
                        "group_loss": group}
@@ -530,13 +525,6 @@ CRITERIA: Dict[str, Callable] = {
     "active_joint_multi_predignore_logprecision": lambda cfg: _joint_loss(
         cfg, False),
 }
-# the criteria whose normalisers count the global batch under data
-# parallelism (losses/fused.lossdecomp_fused, losses/standard.cross_entropy):
-# the fused lossdecomp of both recipes and the plain CE of stage 2
-DP_CRITERIA = frozenset({
-    "active_joint_multi_predignore_lossdecomp",
-    "active_joint_multi_lossdecomp", "active_predignore", "active",
-    "active_slide"})
 
 
 def get_criterion(cfg):
@@ -588,12 +576,8 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
     device, apart from the dropout stream, seeded with cfg.seed + 1 (the
     round loop seeds dropout with cfg.seed)."""
     dev = resolve_device(device)
+    # an unknown method raises here on every rank, before any collective
     criterion = get_criterion(cfg)
-    if mesh.world() > 1 and cfg.method not in DP_CRITERIA:
-        raise NotImplementedError(
-            f"method {cfg.method!r} on {mesh.world()} ranks: only "
-            f"{sorted(DP_CRITERIA)} normalise over the global batch so far; "
-            "the others are ROADMAP.md queue A, item 17b")
     mesh.broadcast_state(model)
     needs_feat = getattr(criterion, "needs_feat", False)
     needs_rng = getattr(criterion, "needs_rng", False)

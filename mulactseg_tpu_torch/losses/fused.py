@@ -78,12 +78,11 @@ def lossdecomp_fused(logits, target_bits, targets, spx, *, nseg: int,
     # presence is read from class 0's argmax (fused.py:132)
     present = (pix[:, 0] < P).reshape(B, nseg)
     entry = (targets > 0.5) & present[:, :, None]
-    # the normalisers count the global batch: under data parallelism the
-    # three counts are summed over the ranks (no gradient), so each rank's
-    # terms are its share and their sum over the ranks the global loss
-    counts = mesh.all_reduce_sum(torch.stack(
-        [sums[1].detach().double(), sums[3].detach().double(),
-         entry.sum().double()])).float()
+    # the normalisers count the global batch (one all-reduce of the three
+    # counts under data parallelism), so each rank's terms are its share
+    # and their sum over the ranks the global loss
+    counts = mesh.global_count(torch.stack(
+        [sums[1].double(), sums[3].double(), entry.sum().double()])).float()
     ce = sums[0] / (1.0 + counts[0])
     mc = sums[2] / (1.0 + counts[1])
     gnll = -torch.log(mx + EPS)

@@ -17,6 +17,10 @@ seg_count, plain XLA there) are index_add_ and bincount here, as
 acquisition/scoring.py makes them. The JAX package's hierarchy loss also
 takes gumbel_scale and a key; its only callers pass no key, so the noise
 is never drawn, and the port has no such path.
+
+Under data parallelism the normaliser counts the global batch
+(parallel/mesh.global_count); the argmaxes, the small-superpixel sums
+and weight_reduce's per-segment max and mean stay per image.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from mulactseg_tpu_torch.losses.partial import _softmax
 from mulactseg_tpu_torch.ops.segment_max import segment_max_grad
+from mulactseg_tpu_torch.parallel import mesh
 
 EPS = 1e-8
 
@@ -89,7 +94,7 @@ def hier_group_multi_label_ce(logits, targets, spx, spx_small, spmask, *,
         ok = pair & (small_at < small_nseg)
         loss = loss + torch.where(ok, _at_pairs(sums, small_c), 0.0).sum()
         num = num + torch.where(ok, sizes[small_c], 0).sum()
-    return loss / (1.0 + num)
+    return loss / (1.0 + mesh.global_count(num)).to(loss.dtype)
 
 
 def async_hier_group_multi_label_ce(
@@ -144,7 +149,7 @@ def async_hier_group_multi_label_ce(
         kept = pair & (small_at < small_nseg)
         loss = loss + torch.where(kept, val, 0.0).sum()
         num = num + torch.where(kept & (val != 0), sizes[small_c], 0).sum()
-    return loss / (1.0 + num)
+    return loss / (1.0 + mesh.global_count(num)).to(loss.dtype)
 
 
 def border_spx_ids_mask(spx_2d, nseg):

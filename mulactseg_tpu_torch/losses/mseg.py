@@ -5,7 +5,8 @@ An image carries annotations at several superpixel granularities
 (nseg_list, ascending), stacked on a level axis: spx_levels and
 spmask_levels (B, S, H, W), absent levels all-False in spmask, so they
 add nothing. Both terms sum over every level with one batch-global
-normaliser, 1 + the count. The group term takes each level's
+normaliser, 1 + the count (under data parallelism the global batch's,
+parallel/mesh.global_count). The group term takes each level's
 per-(superpixel, class) max of each image's softmax through
 ops/segment_max.segment_max_grad (K5 once an image and level on the
 card), and the max carries the gradient to its argmax pixel.
@@ -29,6 +30,7 @@ from mulactseg_tpu_torch.losses.partial import (
     _segment_max,
     _softmax,
 )
+from mulactseg_tpu_torch.parallel import mesh
 
 EPS = 1e-8
 
@@ -48,7 +50,7 @@ def mseg_multi_choice_ce(logits, targets_by_level: Sequence[torch.Tensor],
         nll = -torch.log((probs * trg_pixel).sum(dim=1) + EPS)
         loss = loss + torch.where(mask, nll, 0.0).sum()
         count = count + mask.sum()
-    return loss / (1.0 + count)
+    return loss / (1.0 + mesh.global_count(count)).to(loss.dtype)
 
 
 def mseg_group_multi_label_ce(logits, targets_by_level, spx_levels,
@@ -70,7 +72,7 @@ def mseg_group_multi_label_ce(logits, targets_by_level, spx_levels,
         entry = (targets_by_level[s] > 0.5) & present[:, :, None]
         loss = loss + torch.where(entry, -torch.log(mx + EPS), 0.0).sum()
         count = count + entry.sum()
-    return loss / (1.0 + count)
+    return loss / (1.0 + mesh.global_count(count)).to(loss.dtype)
 
 
 def mseg_joint_loss(logits, targets_by_level, spx_levels, spmask_levels, *,

@@ -14,6 +14,10 @@ the pixel's similarities to its superpixel's prototypes
 the first ones in (superpixel, class) row-major order, the others
 dropped, as jnp.nonzero(..., size=max_protos) drops them. The compaction
 is a cumsum and a scatter, so the card is not synchronised.
+
+Under data parallelism the prototypes and their cap stay per image, as
+the JAX package vmaps them; the two losses' counts and pwce's finiteness
+test are the global batch's (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from mulactseg_tpu_torch.ops.segment_max import seg_max_fwd
+from mulactseg_tpu_torch.parallel import mesh
 
 EPS = 1e-8
 NEG = -1e30
@@ -138,22 +143,24 @@ def prototype_weight_targets(feats, probs_plbl, targets, spx, spmask, *,
 def prototype_weighted_ce(logits, weights, spmask, *, temp=1.0):
     """The pwce loss body (online.py:149-165): over spmask pixels, the sum
     of sum_c w_{p,c} * -log softmax_c, over 1 + their count; 0 where that
-    is not finite. logits (B, C, H, W), weights (B, H * W, C)."""
+    is not finite (the global batch's loss, under data parallelism).
+    logits (B, C, H, W), weights (B, H * W, C)."""
     B, C = logits.shape[:2]
     probs = torch.softmax(logits.float().reshape(B, C, -1) / temp, dim=1)
     m = spmask.reshape(B, -1).bool()
     nll = -torch.log(probs + EPS)
     per_pix = (weights.reshape(B, -1, C).transpose(1, 2) * nll).sum(dim=1)
-    out = torch.where(m, per_pix, 0.0).sum() / (1.0 + m.sum())
-    return torch.where(torch.isfinite(out), out, 0.0)
+    out = torch.where(m, per_pix, 0.0).sum() / (
+        1.0 + mesh.global_count(m.sum())).to(per_pix.dtype)
+    return torch.where(mesh.global_isfinite(out), out, 0.0)
 
 
 def local_proto_ce(logits, plbl, *, temp=1.0, ignore_value=255,
                    weights=None):
     """CE between logits (B, C, H, W) and online pseudo labels plbl
     (B, H, W), each pixel's NLL scaled by the detached `weights`
-    (B, H, W) when given; the mean over the labelled pixels, 0 without
-    one (online.py:167-179)."""
+    (B, H, W) when given; the mean over the global batch's labelled
+    pixels, 0 without one (online.py:167-179)."""
     B, C = logits.shape[:2]
     logp = torch.log_softmax(logits.float() / temp, dim=1)
     plbl = plbl.reshape(B, 1, *logits.shape[2:]).long()
@@ -161,6 +168,6 @@ def local_proto_ce(logits, plbl, *, temp=1.0, ignore_value=255,
     nll = -logp.gather(1, torch.where(plbl != ignore_value, plbl, 0))[:, 0]
     if weights is not None:
         nll = nll * weights.reshape(nll.shape).detach()
-    n = valid.sum()
+    n = mesh.global_count(valid.sum())
     loss = torch.where(valid, nll, 0.0).sum()
-    return torch.where(n > 0, loss / n.clamp(min=1), 0.0)
+    return torch.where(n > 0, loss / n.clamp(min=1).to(loss.dtype), 0.0)

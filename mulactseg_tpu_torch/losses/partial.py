@@ -2,7 +2,8 @@
 mulactseg_tpu/losses/partial.py.
 
 Same formulas and normalisers as the JAX package (num_valid starts at 1
-and counts over the whole batch), on the port's float32 NCHW logits
+and counts over the whole batch: under data parallelism the global
+batch, _norm), on the port's float32 NCHW logits
 (B, C, H, W): the softmax and the per-pixel candidate rows stay (B, C, P)
 with P = H * W, so no full-resolution transpose is made.
   - `targets` are the per-superpixel multi-hot annotations (B, S, C_t),
@@ -23,8 +24,16 @@ from __future__ import annotations
 import torch
 
 from mulactseg_tpu_torch.ops.segment_max import seg_max_fwd, segment_max_grad
+from mulactseg_tpu_torch.parallel import mesh
 
 EPS = 1e-8
+
+
+def _norm(total, count):
+    """total / (1 + the global batch's count): under data parallelism the
+    count is summed over the ranks (parallel/mesh.global_count) and the
+    1 added once, so each rank's loss is its share of the global one."""
+    return total / (1.0 + mesh.global_count(count)).to(total.dtype)
 
 
 def _softmax(logits, temp):
@@ -81,7 +90,7 @@ def multi_choice_ce(logits, targets, spx, spmask, *, temp=1.0,
     trg_pixel = _pixel_targets(trg, spx)
     valid = mask & (trg_pixel > 0).any(dim=1)
     nll = -torch.log((probs * trg_pixel).sum(dim=1) + EPS)
-    return _where_sum(valid, nll) / (1.0 + valid.sum())
+    return _norm(_where_sum(valid, nll), valid.sum())
 
 
 def group_multi_label_ce(logits, targets, spx, spmask, *, nseg, temp=1.0,
@@ -104,7 +113,7 @@ def group_multi_label_ce(logits, targets, spx, spmask, *, nseg, temp=1.0,
     mx, present = _segment_max(probs, sid, nseg)
     entry = (trg > 0.5) & present[:, :, None]
     nll = -torch.log(mx + EPS)
-    return _where_sum(entry, nll) / (1.0 + entry.sum())
+    return _norm(_where_sum(entry, nll), entry.sum())
 
 
 def onehot_ce_multihot_choice(logits, targets, spx, spmask, *, temp=1.0,
@@ -120,8 +129,8 @@ def onehot_ce_multihot_choice(logits, targets, spx, spmask, *, temp=1.0,
     nll = -torch.log((probs * trg_pixel).sum(dim=1) + EPS)
     oh = mask & (n_cand == 1)
     mh = mask & (n_cand > 1)
-    oh_loss = _where_sum(oh, nll) / (1.0 + oh.sum())
-    mh_loss = _where_sum(mh, nll) / (1.0 + mh.sum())
+    oh_loss = _norm(_where_sum(oh, nll), oh.sum())
+    mh_loss = _norm(_where_sum(mh, nll), mh.sum())
     if return_multi_mask:
         return oh_loss, mh_loss, n_cand > 1
     return oh_loss, mh_loss
@@ -160,7 +169,7 @@ def multi_choice_ce_scale(logits, targets, spx, spmask, *, temp=1.0):
     nhot = trg_pixel.sum(dim=1).nan_to_num(0.0).int()
     w = table[torch.clamp(nhot - 1, 0, C - 1).long()]
     nll = -w * torch.log(pos + EPS)
-    return _where_sum(valid, nll) / (1.0 + valid.sum())
+    return _norm(_where_sum(valid, nll), valid.sum())
 
 
 def multi_choice_ce_only_dominant(logits, targets, spx, spmask, *,
@@ -172,7 +181,7 @@ def multi_choice_ce_only_dominant(logits, targets, spx, spmask, *,
     trg_pixel = _pixel_targets(trg, spx)
     valid = mask & (trg_pixel.sum(dim=1) == 1)
     nll = -torch.log((probs * trg_pixel).sum(dim=1) + EPS)
-    return _where_sum(valid, nll) / (1.0 + valid.sum())
+    return _norm(_where_sum(valid, nll), valid.sum())
 
 
 def weighted_group_multi_label_ce(logits, plbl_logits, targets, spx, spmask,
@@ -191,7 +200,7 @@ def weighted_group_multi_label_ce(logits, plbl_logits, targets, spx, spmask,
                        for b in range(probs.shape[0])])
     entry = (trg > 0.5) & present[:, :, None] & row_ok[:, :, None]
     nll = -wmx * torch.log(mx + EPS)
-    return _where_sum(entry, nll) / (1.0 + entry.sum())
+    return _norm(_where_sum(entry, nll), entry.sum())
 
 
 def top_one_plbl_loss(logits, plbl_logits, targets, spx, spmask, *,
@@ -212,7 +221,7 @@ def top_one_plbl_loss(logits, plbl_logits, targets, spx, spmask, *,
             pos_plbl.sum(dim=1, keepdim=True), min=EPS)
     keep = multi & (pos_plbl.amax(dim=1) > threshold)
     top = pos.amax(dim=1)
-    return _where_sum(keep, -torch.log(top + EPS)) / (1.0 + keep.sum())
+    return _norm(_where_sum(keep, -torch.log(top + EPS)), keep.sum())
 
 
 def exclusive_ce(logits, targets, spx, spmask):
@@ -232,7 +241,7 @@ def exclusive_ce(logits, targets, spx, spmask):
     es = (e * trg_pixel) / (denom + EPS)
     ce = -torch.log(es + EPS) * trg_pixel
     pix = ce.sum(dim=1) / torch.clamp(trg_pixel.sum(dim=1), min=1.0)
-    return _where_sum(valid, pix) / (1.0 + valid.sum())
+    return _norm(_where_sum(valid, pix), valid.sum())
 
 
 def onehot_ce_multihot_topone(logits, targets, spx, spmask, *, temp=1.0):
@@ -245,10 +254,10 @@ def onehot_ce_multihot_topone(logits, targets, spx, spmask, *, temp=1.0):
     pos = probs * trg_pixel
     oh = mask & (n_cand == 1)
     mh = mask & (n_cand > 1)
-    oh_loss = _where_sum(oh, -torch.log(pos.sum(dim=1) + EPS)) / (
-        1.0 + oh.sum())
-    mh_loss = _where_sum(mh, -torch.log(pos.amax(dim=1) + EPS)) / (
-        1.0 + mh.sum())
+    oh_loss = _norm(_where_sum(oh, -torch.log(pos.sum(dim=1) + EPS)),
+                    oh.sum())
+    mh_loss = _norm(_where_sum(mh, -torch.log(pos.amax(dim=1) + EPS)),
+                    mh.sum())
     return oh_loss, mh_loss
 
 
@@ -263,9 +272,9 @@ def onehot_ce_multihot_rc(logits, targets, spx, spmask, *, temp=1.0):
     pos = probs * trg_pixel
     oh = mask & (n_cand == 1)
     mh = mask & (n_cand > 1)
-    oh_loss = _where_sum(oh, -torch.log(pos.sum(dim=1) + EPS)) / (
-        1.0 + oh.sum())
-    mh_loss = _where_sum(mh, _rc_per_pixel(pos)) / (1.0 + mh.sum())
+    oh_loss = _norm(_where_sum(oh, -torch.log(pos.sum(dim=1) + EPS)),
+                    oh.sum())
+    mh_loss = _norm(_where_sum(mh, _rc_per_pixel(pos)), mh.sum())
     return oh_loss, mh_loss
 
 
@@ -283,7 +292,7 @@ def rc_multi_choice_ce(logits, targets, spx, spmask, *, temp=1.0,
     trg_pixel = _pixel_targets(trg, spx)
     valid = mask & (trg_pixel > 0).any(dim=1)
     perpix = _rc_per_pixel(probs * trg_pixel)
-    return _where_sum(valid, perpix) / (1.0 + valid.sum())
+    return _norm(_where_sum(valid, perpix), valid.sum())
 
 
 def multi_choice_ent(logits, targets, spx, spmask, *, temp=1.0,
@@ -303,7 +312,7 @@ def multi_choice_ent(logits, targets, spx, spmask, *, temp=1.0,
     p = torch.softmax(torch.where(cand, lg, float("-inf")) / temp, dim=1)
     p = torch.where(cand, p, 0.0)
     ent = -(p * torch.log(p + EPS)).sum(dim=1)
-    return _where_sum(valid, ent) / (1.0 + valid.sum())
+    return _norm(_where_sum(valid, ent), valid.sum())
 
 
 def max_multi_choice_ce(logits, targets, spx, spmask, *, temp=1.0,
@@ -315,7 +324,7 @@ def max_multi_choice_ce(logits, targets, spx, spmask, *, temp=1.0,
     trg_pixel = _pixel_targets(trg, spx)
     valid = mask & (trg_pixel > 0).any(dim=1)
     pos = torch.where(trg_pixel > 0, probs, 0.0).amax(dim=1)
-    return _where_sum(valid, -torch.log(pos + EPS)) / (1.0 + valid.sum())
+    return _norm(_where_sum(valid, -torch.log(pos + EPS)), valid.sum())
 
 
 def rand_multi_choice_ce(logits, targets, spx, spmask, generator, *,
@@ -325,16 +334,21 @@ def rand_multi_choice_ce(logits, targets, spx, spmask, generator, *,
     independent uniform draws from `generator` (a torch.Generator on the
     logits' device) over the candidates. JAX draws Gumbel noise from its
     own key, so the classes picked differ; the distribution is the
-    same."""
+    same. Under data parallelism every rank draws the global batch's
+    uniforms and keeps its own rows (as models/layers.Dropout does), so
+    the ranks pick the classes one rank picks."""
     probs, trg, spx, mask = _flatten(logits, targets, spx, spmask, temp,
                                      slice_last)
     trg_pixel = _pixel_targets(trg, spx)
     valid = mask & (trg_pixel > 0).any(dim=1)
-    u = torch.rand(trg_pixel.shape, generator=generator,
-                   device=trg_pixel.device)
+    w = mesh.world()
+    u = torch.rand((trg_pixel.shape[0] * w,) + trg_pixel.shape[1:],
+                   generator=generator, device=trg_pixel.device)
+    if w > 1:
+        u = u[mesh.local_rows(u.shape[0])]
     pick = torch.where(trg_pixel > 0, u, -1.0).argmax(dim=1)
     pos = probs.gather(1, pick[:, None])[:, 0]
-    return _where_sum(valid, -torch.log(pos + EPS)) / (1.0 + valid.sum())
+    return _norm(_where_sum(valid, -torch.log(pos + EPS)), valid.sum())
 
 
 def plbl_onehot_ce_multihot_choice(logits, targets, spx, spmask, plbl, *,
@@ -342,7 +356,9 @@ def plbl_onehot_ce_multihot_choice(logits, targets, spx, spmask, plbl, *,
     """The sequence trainer's positive term (partial.py:409-455): CE on
     one-hot pixels and on multi-hot pixels whose previous-round pseudo
     label is a candidate (that class), merged-positive MC on the other
-    multi-hot pixels. Returns (ce_sum, ce_num, mc_sum, mc_num)."""
+    multi-hot pixels. Returns (ce_sum, ce_num, mc_sum, mc_num): the sums
+    this rank's, the counts the global batch's (float64, parallel/mesh.
+    global_count), which the caller's one normaliser adds."""
     probs, trg, spx_f, mask = _flatten(logits, targets, spx, spmask, temp,
                                        slice_last=False)
     B, C, P = probs.shape
@@ -359,6 +375,7 @@ def plbl_onehot_ce_multihot_choice(logits, targets, spx, spmask, plbl, *,
     mh = mask & (n_cand > 1) & ~plbl_in_cand
     ce_sum = (_where_sum(oh, -torch.log(pos_merged + EPS))
               + _where_sum(mh_plbl, -torch.log(pos_plbl + EPS)))
-    ce_num = oh.sum() + mh_plbl.sum()
     mc_sum = _where_sum(mh, -torch.log(pos_merged + EPS))
-    return ce_sum, ce_num, mc_sum, mh.sum()
+    ce_num, mc_num = mesh.global_count(torch.stack(
+        [oh.sum() + mh_plbl.sum(), mh.sum()]))
+    return ce_sum, ce_num, mc_sum, mc_num

@@ -1,6 +1,8 @@
 """Dense-label losses: the port of mulactseg_tpu/losses/standard.py, on
 float32 NCHW logits: temperature CE (stage-2 retraining), focal loss and
-the RCCE variants over dense candidate maps."""
+the RCCE variants over dense candidate maps. Under data parallelism each
+mean's count is the global batch's, so each rank returns its share of
+the global mean."""
 
 from __future__ import annotations
 
@@ -11,20 +13,22 @@ from mulactseg_tpu_torch.parallel import mesh
 EPS = 1e-8
 
 
+def _count(mask):
+    """The global batch's count of mask, at least 1 (a mean's
+    denominator; parallel/mesh.global_count)."""
+    return mesh.global_count(mask.sum()).clamp(min=1).float()
+
+
 def cross_entropy(logits, labels, *, temp=1.0, ignore_index=255):
     """Mean CE over non-ignored pixels with temperature, in float32.
-    logits (B, C, H, W) float, labels (B, H, W) int. Under data
-    parallelism the count of non-ignored pixels is the global batch's
-    (summed over the ranks), so each rank returns its share of the
-    global mean."""
+    logits (B, C, H, W) float, labels (B, H, W) int."""
     lg = logits.float() / temp
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logp = torch.log_softmax(lg, dim=1)
     nll = -logp.gather(1, safe[:, None])[:, 0]
     loss = torch.where(valid, nll, torch.zeros_like(nll)).sum()
-    n = mesh.all_reduce_sum(valid.sum().double()).clamp(min=1)
-    return loss / n.to(loss.dtype)
+    return loss / _count(valid)
 
 
 def focal_loss(logits, labels, *, alpha=1.0, gamma=0.0, ignore_index=255,
@@ -38,7 +42,7 @@ def focal_loss(logits, labels, *, alpha=1.0, gamma=0.0, ignore_index=255,
     pt = torch.exp(-ce)
     fl = torch.where(valid, alpha * (1.0 - pt) ** gamma * ce, 0.0)
     if size_average:
-        return fl.sum() / valid.sum().clamp(min=1)
+        return fl.sum() / _count(valid)
     return fl.sum()
 
 
@@ -62,7 +66,7 @@ def rcce(logits, targets, *, temp=1.0):
     t = _class_major(targets.float())
     keep = t[-1] == 0
     loss = torch.where(keep, _rc_core(p, p, t[:-1]), 0.0)
-    return loss.sum() / keep.sum().clamp(min=1)
+    return loss.sum() / _count(keep)
 
 
 def rcce_asym(logits, logits_w, targets, *, temp=1.0, temp_w=1.0):
@@ -73,4 +77,4 @@ def rcce_asym(logits, logits_w, targets, *, temp=1.0, temp_w=1.0):
     t = _class_major(targets.float())
     keep = t[-1] == 0
     loss = torch.where(keep, _rc_core(p, pw, t[:-1]), 0.0)
-    return loss.sum() / keep.sum().clamp(min=1)
+    return loss.sum() / _count(keep)

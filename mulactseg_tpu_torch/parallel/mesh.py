@@ -10,9 +10,12 @@ collectives are written out:
 - the weights are broadcast from rank 0 once (broadcast_state, called by
   make_train_step); every rank then takes the same optimizer step on the
   gradient SUMMED over the ranks (all_reduce_grads), because each rank's
-  loss is its share of the global batch's loss: the normalisers are
-  global counts (losses/fused.py, losses/standard.py). DDP would average,
-  and divide the learning signal by the number of ranks;
+  loss is its share of the global batch's loss: every batch-level
+  normaliser is a global count (global_count; losses/), and the NaN
+  guards read the global loss (global_isfinite). DDP would average,
+  and divide the learning signal by the number of ranks. Group terms,
+  prototypes and per-segment means stay per image: a segment never
+  crosses ranks;
 - BN statistics are global, the JAX package's choice (its mesh.py:10-24,
   MIGRATION.md:79-81): models/layers.FastBatchNorm all-reduces its
   [sum x, sum x^2] through all_reduce_sum, which is differentiable;
@@ -147,6 +150,21 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """The sum of t over the ranks, differentiable; t itself without a
     group."""
     return _AllReduceSum.apply(t) if active() else t
+
+
+def global_count(t: torch.Tensor) -> torch.Tensor:
+    """A batch-level count summed over the ranks: detached, float64 (exact
+    for any count). A loss's normaliser is 1 + global_count(n), not a sum
+    of 1 + n over the ranks, so each rank's loss is its share of the
+    global batch's. Without a group, t itself in float64."""
+    return all_reduce_sum(t.detach().double())
+
+
+def global_isfinite(x: torch.Tensor) -> torch.Tensor:
+    """isfinite of x summed over the ranks (detached): where one rank's
+    share of a loss is NaN, every rank sees the global loss as NaN, as
+    one rank holding the whole batch would."""
+    return torch.isfinite(all_reduce_sum(x.detach()))
 
 
 def all_gather_rows(t: torch.Tensor) -> torch.Tensor:

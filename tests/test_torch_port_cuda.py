@@ -59,7 +59,9 @@ SlidingEval on a small float32 model, TF32 off, with 2 x 4 windows and
 with one centre-padded window, the summed logits within 1e-4 of the
 largest and the renormalised features within 1e-4 of the CPU's. Data
 parallelism: two ranks sharing the card under gloo against one rank
-(BN, dropout, a fused step), as chip_smoke.py's dp phase.
+(BN, dropout, a fused step), as chip_smoke.py's dp phase, and three
+criteria with K5 in their step (the joint, an online and mseg), as its
+dp_criteria phase.
 """
 
 import numpy as np
@@ -1181,3 +1183,48 @@ def test_data_parallel_two_ranks_on_one_card(dev):
         assert g @ w / (np.linalg.norm(g) * np.linalg.norm(w)) >= 0.99
         assert abs(np.linalg.norm(g) - np.linalg.norm(w)) <= \
             1e-2 * np.linalg.norm(w)
+
+
+def test_criteria_data_parallel_two_ranks_on_one_card(dev):
+    """Three criteria beside the fused one, each running K5 (the joint
+    criterion's group term, an online criterion's prototypes and group
+    term, mseg's levels), step 0 at world 2 (two ranks sharing the card
+    under gloo) against this process alone, on the batch of
+    tests/test_torch_port_parallel_criteria.py and the small twin in
+    float32 with TF32 off: the loss parts within 1e-3 relative, the
+    gradient cosine >= 0.99 and its norm within 1e-2 (the JAX dryrun's
+    bounds, as chip_smoke.py's dp phases hold them), both ranks on one
+    summed gradient; K5 launched on each rank for its own images, the
+    two ranks' launches summing to world 1's."""
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.parallel import mesh
+    import torch_port_parallel_ranks as ranks  # beside this file
+
+    card = f"cuda:{torch.cuda.current_device()}"
+    batch = ranks.full_batch(np.random.RandomState(21))
+    # (method, overrides, K5 launches an image)
+    cases = {"active_joint_multi_predignore": ({}, 1),
+             "active_onlinesimwplbl_multi_predignore_domc": ({}, 2),
+             "active_joint_multi_predignore_mseg": ({}, len(ranks.LEVELS))}
+    steps = [(m, ranks.cfg_for(m, over), [ranks.for_method(batch, m)])
+             for m, (over, _) in cases.items()]
+    spec = ("twin", convert.random_variables(ranks.port_twin(True), 3))
+    jobs = [("steps", "criteria_steps", (spec, steps, card))]
+    two = mesh.spawn(ranks.run_all, 2, "gloo", card, jobs, timeout=180)
+    one = ranks.run_all(jobs)["steps"]
+    for m, (_, k5) in cases.items():
+        want = one[m]
+        assert want["launches"] == {"seg_max_fwd": k5 * ranks.B}, m
+        for res in two:
+            got = res["steps"][m]
+            assert got["launches"] == {"seg_max_fwd": k5 * ranks.B // 2}, m
+            assert got["grad_sq"] == two[0]["steps"][m]["grad_sq"]
+            for k, w in want["losses"][0].items():
+                assert abs(got["losses"][0][k] - w) <= 1e-3 * abs(w), (m, k)
+        g = np.concatenate([a.ravel() for a in
+                            two[0]["steps"][m]["grads"].values()])
+        w = np.concatenate([a.ravel() for a in want["grads"].values()])
+        g, w = g.astype(np.float64), w.astype(np.float64)
+        assert g @ w / (np.linalg.norm(g) * np.linalg.norm(w)) >= 0.99, m
+        assert abs(np.linalg.norm(g) - np.linalg.norm(w)) <= \
+            1e-2 * np.linalg.norm(w), m

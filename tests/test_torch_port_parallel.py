@@ -35,8 +35,8 @@ model twin of test_torch_port_model.py at 33x33, batch 4.
   round's mIoU within 1 point, world 1's files and metric lines (rank 0
   writes them).
 - The guards (a batch the width does not divide, n_devices against the
-  width, a criterion outside DP_CRITERIA), the spawn helper's failure
-  and timeout paths, and the per-rank card choice.
+  width, an unknown method: KeyError on both ranks), the spawn helper's
+  failure and timeout paths, and the per-rank card choice.
 """
 
 import json
@@ -392,7 +392,7 @@ def test_loader_rank_rows_are_the_one_rank_batch(case, job):
 
 @pytest.mark.parametrize("guard,match", [
     ("batch", "not divisible"), ("n_devices", "n_devices=3"),
-    ("criterion", "item 17b")])
+    ("method", "'no_such_method' has no registered criterion")])
 def test_world2_guards(case, guard, match):
     for res in case["two"]:
         assert match in res["guards"][guard]
