@@ -310,13 +310,26 @@
 13. Profiles 1 + 3 stage-1 steps at each nseg with torch.profiler: the
    device time per step by kind of kernel and of each loss kernel, the
    top kernels and the device's idle share. Every timed run comes before these passes.
+14. The profiler switch (profile), last: ALTrainer at cfg.profile
+   (engine/rounds.py) with the recipe model from the seeded weights at
+   the stage-1 shape (batch 4, 768x768, nseg 2048, bf16) trains
+   PROF_ITRS steps on a SyntheticRegionDataset label set of PROF_IMAGES
+   images, no validation, every launch counter set to 0 just before and
+   read just after (K1-K4 once a step). Its one trace,
+   profile/rank0.round01.pt.trace.json, is read back: it must hold
+   device spans, every __global__ kernel that K1-K4 launch
+   (COUNTER_KERNELS, by the launch counters' accounting) exactly once a
+   step, and the losses must be finite. Its line: the device busy ms a
+   step and the idle share of the traced window (from the trace's
+   kernel, copy and memset spans), the 10 host ops with the most self
+   time, the profiler's stop and export seconds, the file's MB.
 
 Prints, at the end and in compact JSON (about 37 kB in all: send the
 output to a file where only a tail of it comes back), the slices'
 numbers (the zoo and criteria lines, items 8.1-8.2; the cli_recipe line,
 item 8b; the loader_arms line, item 8d; the voc_recipe line, item 8c;
 the evals line, item 8e; the dp line, item 8f; the dp_criteria line,
-item 8g; evaluation;
+item 8g; the profile_phase line, item 14; evaluation;
 stage 1 at both nseg; plbl; the al_rounds line: per round the selection
 seconds, train img/s, validations, eval mIoU, checkpoint save and load
 seconds; then plbl img/s, stage-2 img/s and mIoU, peak memory and the
@@ -412,6 +425,15 @@ DP_STEPS, DP_SGD_STEPS, DP_ITRS, DP_TIMEOUT = 6, 3, 4, 400
 # the criteria's data-parallel phase: two cosine-backed analysis methods
 # (the first writes overlays) and the probe through eval_al at world 2
 DPC_ANALYSIS = ("eval_vistopone_within_multihot", "eval_all_cosplbl_prop")
+# the profiler switch: ALTrainer at cfg.profile for PROF_ITRS stage-1 steps
+# on a label set of PROF_IMAGES synthetic images
+PROF_ITRS, PROF_IMAGES = 4, 8
+# the __global__ kernels of csrc/ that each launch counter's wrapper
+# launches, one of each a count
+COUNTER_KERNELS = {"pixel_ce_fwd": ("pixel_ce_fwd_kernel",),
+                   "pixel_ce_bwd": ("pixel_ce_bwd_kernel",),
+                   "ssm_fwd": ("ssm_span_kernel", "ssm_decode_kernel"),
+                   "ssm_bwd": ("ssm_bwd_kernel",)}
 TIMING_RUNS, REPEATS = 20, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -1874,15 +1896,22 @@ def device_spans(prof):
                    and not getattr(e, "is_user_annotation", False)
                    and e.time_range.end > e.time_range.start)
     check(spans, "the profiler saw no device activity")
+    return (spans, *busy_window(spans))
+
+
+def busy_window(spans):
+    """(busy, window) of (start, end, ...) spans sorted by start: busy is
+    their union (one stream), the window runs from the first start to the
+    last end."""
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e, _ in spans:
+    for s, e, *_ in spans:
         if s > cur_e:
             busy += cur_e - cur_s
             cur_s, cur_e = s, e
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    return spans, busy, spans[-1][1] - spans[0][0]
+    return busy, spans[-1][1] - spans[0][0]
 
 
 def profile_steps(step, batches, label, n=3, top=25):
@@ -1929,6 +1958,139 @@ def profile_steps(step, batches, label, n=3, top=25):
             if any(key in name for key in loss_keys)}}}))
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {t / n / 1e3:9.3f} ms/step  {name[:110]}")
+
+
+def host_self_ms(events, top=10):
+    """The `top` host ops of a Chrome trace by self time (an op's span less
+    its child ops' on the same thread), in ms summed over the trace."""
+    threads = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and e.get("ph") == "X":
+            threads.setdefault((e["pid"], e["tid"]), []).append(
+                (e["ts"], -e["dur"], e["name"]))
+    self_us = Counter()
+    for ops in threads.values():
+        ops.sort()
+        stack = []  # [end, name, span, children's spans]
+
+        def pop():
+            end, name, span, child = stack.pop()
+            self_us[name] += span - child
+            if stack:
+                stack[-1][3] += span
+
+        for ts, neg, name in ops:
+            while stack and stack[-1][0] <= ts:
+                pop()
+            stack.append([ts - neg, name, -neg, 0.0])
+        while stack:
+            pop()
+    return [[name, t / 1e3] for name, t in self_us.most_common(top)]
+
+
+def profile_slice(variables, dev, smi, workdir):
+    """The profiler switch (docstring, item 14): ALTrainer at cfg.profile
+    trains PROF_ITRS recipe steps, the launch counters set to 0 just
+    before and read just after; its trace is read back and held. Returns
+    (the profile line, the path's launches)."""
+    from torch.profiler import profile
+
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.data.synthetic import SyntheticRegionDataset
+    from mulactseg_tpu_torch.engine.rounds import ALTrainer
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.models.factory import get_model
+    from mulactseg_tpu_torch.ops import _build
+
+    cfg = Config(num_classes=NUM_CLASSES - 1, nseg=NSEG, crop_size=(H, W),
+                 train_batch_size=B, dtype="bfloat16", separable_conv=True,
+                 method="active_joint_multi_predignore_lossdecomp",
+                 finetune_itrs=PROF_ITRS, profile=True, num_workers=4,
+                 model_save_dir=workdir)
+    model = get_model(cfg.model, cfg.num_model_classes, cfg.output_stride,
+                      separable_conv=True, device=dev)
+    convert.load_variables(model, variables)
+    trainer = ALTrainer(cfg, 1, model=model, device=dev)
+    trainset = SyntheticRegionDataset(n_images=PROF_IMAGES, H=H, W=W,
+                                      num_classes=NUM_CLASSES - 1, nseg=NSEG,
+                                      split="active-label", seed=7)
+    # the steps' losses, read after the loop (no sync inside it)
+    auxes, real_step = [], trainer.train_step
+
+    def recorded(batch):
+        auxes.append(real_step(batch))
+        return auxes[-1]
+    recorded.__dict__ = real_step.__dict__  # step count and optimizer
+    trainer.train_step = recorded
+    spent = {}
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            t1 = time.perf_counter()
+            out = fn(*a, **k)
+            spent[key] = time.perf_counter() - t1
+            return out
+        return wrapper
+
+    with mock.patch.object(profile, "stop", timed(profile.stop, "stop_s")), \
+            mock.patch.object(profile, "export_chrome_trace", timed(
+                profile.export_chrome_trace, "export_s")):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rate = trainer.train(type("Active", (), {
+            "get_trainset": lambda _: trainset})())
+        train_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    losses = [{k: float(v) for k, v in aux.items()} for aux in auxes]
+    check(len(losses) == PROF_ITRS and all(
+        math.isfinite(x) for aux in losses for x in aux.values()),
+        f"profile phase: losses {losses}")
+    check(launches == {k: PROF_ITRS for k in STAGE1_KERNELS},
+          f"profile phase launches {launches}, want each of "
+          f"{STAGE1_KERNELS} once per step")
+
+    path = trainer.trace_file
+    check(os.path.basename(path) == "rank0.round01.pt.trace.json"
+          and os.path.dirname(path) == os.path.join(workdir, "profile")
+          and os.listdir(os.path.dirname(path)) == [os.path.basename(path)],
+          f"profile phase: trace {path}, "
+          f"{os.listdir(os.path.join(workdir, 'profile'))}")
+    trace_mb = os.path.getsize(path) / 2 ** 20
+    t0 = time.perf_counter()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    read_s = time.perf_counter() - t0
+    device = sorted((e["ts"], e["ts"] + e["dur"], e["cat"], e["name"])
+                    for e in events if e.get("cat") in (
+                        "kernel", "gpu_memcpy", "gpu_memset")
+                    and e.get("dur", 0) > 0)
+    kernels = [name for _, _, cat, name in device if cat == "kernel"]
+    check(kernels, "profile phase: the trace holds no device kernel (the "
+          "CUDA activity was not recorded)")
+    busy, window = busy_window(device)
+    # every kernel that K1-K4 launch, once a step
+    spans = {}
+    for counter, n in launches.items():
+        for g in COUNTER_KERNELS[counter]:
+            pat = re.compile(rf"(?<![A-Za-z0-9_]){g}(?![A-Za-z0-9_])")
+            spans[g] = sum(1 for name in kernels if pat.search(name))
+            check(spans[g] == n, f"profile phase: {g} ({counter}) has "
+                  f"{spans[g]} kernel spans in the trace, want {n}")
+    line = {"profile_phase": {
+        "slice": "ALTrainer.train at cfg.profile", "card": smi,
+        "steps": PROF_ITRS, "trace": os.path.relpath(path, workdir),
+        "trace_mb": trace_mb, "events": len(events),
+        "export_s": spent["export_s"], "stop_s": spent["stop_s"],
+        "read_s": read_s, "train_s": train_s, "img_per_s": rate,
+        "device_spans_per_step": len(device) / PROF_ITRS,
+        "kernel_spans_per_step": len(kernels) / PROF_ITRS,
+        "device_busy_ms_per_step": busy / PROF_ITRS / 1e3,
+        "window_ms_per_step": window / PROF_ITRS / 1e3,
+        "idle_share": 1.0 - busy / window, "loss_kernel_spans": spans,
+        "top_host_self_ms": host_self_ms(events),
+        "losses": losses, "launches": launches}}
+    return line, launches
 
 
 def plbl_fixture(n, seed):
@@ -4669,6 +4831,12 @@ def main():
         gen = torch.Generator(dev).manual_seed(0)
         profile_steps(make_train_step(model, c, device=dev, generator=gen), b,
                       f"stage-1, nseg {c.nseg}")
+    # the profiler switch through ALTrainer, last: a profiler pass slows
+    # what follows
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_line, prof_launches = profile_slice(variables, dev, smi, tmp)
     rows += large_rows + voc_rows + crit_rows + evals_rows
     # each kernel's launches on each main path that runs it, and their sum
     by_path = {f"stage1_nseg{NSEG}": stage1_launches,
@@ -4678,7 +4846,7 @@ def main():
                "voc": voc_launches, "zoo": zoo_launches,
                "criteria": crit_launches, "loader_arms": arms_launches,
                "evals": evals_launches, "dp": dp_launches,
-               "dp_criteria": dpc_launches}
+               "dp_criteria": dpc_launches, "profile": prof_launches}
     launches = sum((Counter(n) for n in by_path.values()), Counter())
     check(all(launches[name] > 0 for name in KERNELS),
           f"a kernel was never launched on a main path: {dict(launches)}")
@@ -4686,7 +4854,7 @@ def main():
     # every slice's line at the end, the kernels line and the card last
     compact = {"separators": (",", ":")}
     for line in (zoo_line, crit_line, cli_line, arms_line, voc_line,
-                 evals_line, dp_line, dpc_line, eval_stats):
+                 evals_line, dp_line, dpc_line, prof_line, eval_stats):
         print(json.dumps(line, **compact))
     print(json.dumps({
         "slice": "cityscapes stage-1 train step", "card": smi,

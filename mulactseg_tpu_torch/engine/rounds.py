@@ -8,7 +8,8 @@ loop with periodic validation and the best-checkpoint policy
 (trainer/base.py:222-244), selection logits and eval. It takes one
 optimizer step per call: the JAX package's steps_per_dispatch amortises
 TPU dispatch over a lax.scan of K steps and has no counterpart here, so
-the option is ignored. The profiler switch is not ported yet.
+the option is ignored. cfg.profile traces each train() call with
+torch.profiler (ALTrainer.train).
 
 Data parallelism, the JAX package's mesh over cfg.n_devices: every rank
 of a process group (torchrun, one rank per card) runs the same
@@ -36,6 +37,7 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mulactseg_tpu_torch.acquisition import get_selector
 from mulactseg_tpu_torch.data.loader import DataProvider
@@ -84,10 +86,6 @@ class ALTrainer:
             raise ValueError(
                 f"train_batch_size {cfg.train_batch_size} not divisible "
                 f"by data-parallel width {width}")
-        if cfg.profile:
-            raise NotImplementedError(
-                "cfg.profile (a profiler trace of the train loop) is not "
-                "ported yet: ROADMAP.md queue A, item 12")
         self.cfg = cfg
         self.selection_iter = selection_iter
         self.best_iou = 0.0
@@ -198,7 +196,15 @@ class ALTrainer:
     def train(self, active_set,
               metrics_cb: Optional[Callable[[int, Dict], None]] = None):
         """cfg.finetune_itrs steps on active_set.get_trainset(), validating
-        on the reference's gate; returns images per second."""
+        on the reference's gate; returns images per second.
+
+        With cfg.profile, torch.profiler traces the loop (every step and
+        validation, CPU ops, and the card's kernels where the trainer runs
+        on one) and writes one Chrome trace per rank and call to
+        <model_save_dir>/profile/rank<r>.round<ii>.pt.trace.json, which
+        TensorBoard's profiler plugin reads. The trace holds every event
+        in host memory until the loop ends, as jax.profiler's does, so it
+        is meant for short runs; the returned rate includes its cost."""
         cfg = self.cfg
         if self.train_step is None:
             raise RuntimeError(
@@ -209,7 +215,10 @@ class ALTrainer:
                               split="rows")
         t0 = time.time()
         it = n_img = 0
+        prof = None
         try:
+            if cfg.profile:
+                prof = self._start_profiler()
             while it < cfg.finetune_itrs:
                 aux = self.train_step(next(loader))
                 it += 1
@@ -227,8 +236,28 @@ class ALTrainer:
             if self.dev.type == "cuda":
                 torch.cuda.synchronize(self.dev)
         finally:
+            if prof is not None:
+                prof.stop()
             loader.close()
+        if prof is not None:
+            prof.export_chrome_trace(self.trace_file)
         return n_img / (time.time() - t0)
+
+    @property
+    def trace_file(self) -> str:
+        """Where train() writes this rank's trace of this round."""
+        return os.path.join(
+            self.cfg.model_save_dir, "profile",
+            f"rank{mesh.rank()}.round{self.selection_iter:02d}.pt.trace.json")
+
+    def _start_profiler(self):
+        os.makedirs(os.path.dirname(self.trace_file), exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if self.dev.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
 
     def _run_evaluator(self, dataset):
         loader = DataProvider(dataset, self.cfg.val_batch_size,

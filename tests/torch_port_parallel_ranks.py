@@ -19,7 +19,10 @@ from mulactseg_tpu_torch.active import RegionActiveSet
 from mulactseg_tpu_torch.acquisition import get_selector
 from mulactseg_tpu_torch.config import Config
 from mulactseg_tpu_torch.data.loader import DataProvider
-from mulactseg_tpu_torch.data.synthetic import irregular_superpixels
+from mulactseg_tpu_torch.data.synthetic import (
+    SyntheticRegionDataset,
+    irregular_superpixels,
+)
 from mulactseg_tpu_torch.engine import train
 from mulactseg_tpu_torch.engine.checkpoint import save_checkpoint
 from mulactseg_tpu_torch.engine.rounds import ALTrainer
@@ -225,6 +228,38 @@ def trainer_round(cfg, model, sets, images, device="cpu"):
             "init_confusion": init_confusion, "validations": validations,
             "miou": miou, "confusion": trainer.evaluator.confusion,
             "files": sorted(os.listdir(cfg.model_save_dir))}
+
+
+class FilesLike:
+    """`dataset` as a loader sees a dataset of files: DataProvider builds
+    its items in worker processes (which import this module), each item
+    the dataset's own."""
+
+    reads_files = True
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def draw(self, index):
+        return None
+
+    def load(self, index, params):
+        return self.dataset[index]
+
+
+def profiled_train(spec, cfg_kw_, dataset_kw):
+    """ALTrainer at cfg.profile on build_model(spec): cfg.finetune_itrs
+    steps on this rank's rows of a synthetic label set (every superpixel
+    labelled). Returns the trace file this rank wrote."""
+    torch.set_num_threads(1)
+    cfg = Config(**cfg_kw_)
+    trainer = ALTrainer(cfg, 1, model=build_model(spec), device="cpu")
+    trainset = SyntheticRegionDataset(**dataset_kw)
+    trainer.train(type("Active", (), {"get_trainset": lambda _: trainset})())
+    return trainer.trace_file
 
 
 def loader_batches(dataset, batch_size, n, seed):
