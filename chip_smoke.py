@@ -122,6 +122,23 @@
    must be finite. Then the paper's selector on the card against the CPU
    on two 96x80 images in float32 with the same weights: scores within
    1e-4, the same selected regions.
+8h. The round loop against itself across devices (round_parity), after
+   the paper's selector's check: run_al_rounds for RP_ROUNDS free-running
+   rounds of RP_FIXTURE (the CPU tests' small model twin from its seeded
+   init, SyntheticRegionDataset, float32, TF32 off, SGD, two validations
+   a round and the best one's checkpoint kept: the fixture on which
+   tools_dev/round_parity_port_fixture.py holds the port against the JAX
+   package), on the card, then on the CPU through
+   the plain versions, from one init file. Every launch counter is set to
+   0 just before the card's rounds and read just after: K1-K4 once a
+   stage-1 step, no other kernel. Each round's selected regions must be
+   the CPU's (Jaccard 1.0); each round's Jaccard and step-0 loss gap
+   print on a line of their own. Then the recipe's pseudo-labels of the
+   last round's label set from the card's last checkpoint, on the card
+   (counted: K5 once an image) and on the CPU: the maps must be equal.
+   Its line: the fixture, per round the Jaccard, regions, step-0 gap and
+   both eval mIoUs, the pixels that differ at synced weights and against
+   the CPU's own last checkpoint, the seconds.
 8f. Data parallelism (dp; mulactseg_tpu_torch/parallel/mesh.py), the
    recipe model at the stage-1 shape from the seeded weights, global
    batch 4, bf16. (a) World 1: a group of one rank under NCCL
@@ -329,7 +346,8 @@ output to a file where only a tail of it comes back), the slices'
 numbers (the zoo and criteria lines, items 8.1-8.2; the cli_recipe line,
 item 8b; the loader_arms line, item 8d; the voc_recipe line, item 8c;
 the evals line, item 8e; the dp line, item 8f; the dp_criteria line,
-item 8g; the profile_phase line, item 14; evaluation;
+item 8g; the profile_phase line, item 14; the round_parity line, item
+8h; evaluation;
 stage 1 at both nseg; plbl; the al_rounds line: per round the selection
 seconds, train img/s, validations, eval mIoU, checkpoint save and load
 seconds; then plbl img/s, stage-2 img/s and mIoU, peak memory and the
@@ -428,6 +446,23 @@ DPC_ANALYSIS = ("eval_vistopone_within_multihot", "eval_all_cosplbl_prop")
 # the profiler switch: ALTrainer at cfg.profile for PROF_ITRS stage-1 steps
 # on a label set of PROF_IMAGES synthetic images
 PROF_ITRS, PROF_IMAGES = 4, 8
+# the round loop's parity fixture (round_parity): the small model twin of
+# the CPU tests with RP_CLASSES outputs from the seeded init RP_SEED, on a
+# SyntheticRegionDataset of hh x hh images with nseg grid superpixels,
+# pool and label sets of `pool` images and a val set of `val`; `budget`
+# clicks a round, `steps` SGD steps a round at batch `batch` and learning
+# rate `lr`, validation every `val_period` steps (None: off, each round
+# keeps its last step); RP_ROUNDS rounds. tools_dev/
+# round_parity_port_fixture.py chose it and holds the JAX package to it
+RP_CLASSES, RP_SEED, RP_ROUNDS = 7, 0, 5
+# two devices' (or packages') pseudo-labels from one checkpoint may differ
+# only at float32 ties: at most RP_PLBL_TIES of the pixels, each a decision
+# within RP_TIE_MARGIN of flipping (plbl_margins: a cosine similarity's
+# distance to its rival or threshold, where float32 forwards that part by
+# ~1e-6 can reach)
+RP_PLBL_TIES, RP_TIE_MARGIN = 2e-2, 1e-5
+RP_FIXTURE = dict(hh=64, nseg=16, pool=6, val=3, budget=24, batch=4,
+                  steps=8, lr=3e-3, val_period=4)
 # the __global__ kernels of csrc/ that each launch counter's wrapper
 # launches, one of each a count
 COUNTER_KERNELS = {"pixel_ce_fwd": ("pixel_ce_fwd_kernel",),
@@ -2621,6 +2656,301 @@ def al_rounds_slice(variables, dev, smi, workdir):
     return line, dict(launches)
 
 
+# -- the round loop's parity fixture (round_parity) ----------------------------
+def rp_model(variables=None, device="cpu"):
+    """The fixture's model: the CPU tests' small DeepLabV3+ twin (ResNet
+    (2, 2, 2, 2) with a deep stem of 16, planes 16-128, the separable
+    weight-normalised head with 12 low-level and 64 mid channels,
+    RP_CLASSES outputs), dropout off, with `variables` (the JAX package's
+    layout) carried in when given."""
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.models.deeplab import DeepLabHeadV3Plus, DeepLabV3
+    from mulactseg_tpu_torch.models.layers import Dropout
+    from mulactseg_tpu_torch.models.resnet import ResNet
+
+    model = DeepLabV3(
+        ResNet(layers=(2, 2, 2, 2), deep_stem=True, stem_width=16,
+               stage_planes=(16, 32, 64, 128)),
+        DeepLabHeadV3Plus(512, 64, RP_CLASSES, (6, 12, 18), variant="wn",
+                          separable=True, low_channels=12, mid_channels=64))
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    if variables is not None:
+        convert.load_variables(model, variables)
+    return model.to(device)
+
+
+def rp_init(seed=RP_SEED):
+    """The fixture's seeded init, in the JAX package's layout."""
+    from mulactseg_tpu_torch.models import convert
+
+    return convert.random_variables(rp_model(), seed)
+
+
+def rp_config_kw(fx, workdir, rounds=RP_ROUNDS):
+    """The fixture's configuration as keywords both packages' Config take:
+    the recipe's criterion and selectors, float32, SGD (momentum 0.9)."""
+    return dict(
+        num_classes=RP_CLASSES - 1, nseg=fx["nseg"],
+        crop_size=(fx["hh"], fx["hh"]), train_batch_size=fx["batch"],
+        finetune_itrs=fx["steps"],
+        val_period=fx["val_period"] or fx["steps"], val_start=0,
+        max_iterations=rounds, active_selection_size=fx["budget"],
+        val_batch_size=fx["batch"], num_workers=2, val_num_workers=2,
+        model_save_dir=str(workdir), dtype="float32", optimizer="sgd",
+        train_lr=fx["lr"], cls_lr_scale=10.0, n_devices=1, log_period=1,
+        method="active_joint_multi_predignore_lossdecomp")
+
+
+def rp_datasets(cls, fx, seed=1):
+    """Pool, empty label set and val set of the fixture, made by `cls`
+    (either package's SyntheticRegionDataset)."""
+    def make(split, n):
+        return cls(n_images=n, H=fx["hh"], W=fx["hh"],
+                   num_classes=RP_CLASSES - 1, nseg=fx["nseg"], split=split,
+                   seed=seed)
+
+    pool, label = make("active-ulabel", fx["pool"]), make("active-label",
+                                                          fx["pool"])
+    label.suppix, label.im_idx = {}, []
+    return pool, label, make("val", fx["val"])
+
+
+def rp_selection_file(r):
+    return (f"{'my_random' if r == 1 else 'my_bvsb_predclsbal_pwr_banignore'}"
+            f"_selection_{r:02d}.json")
+
+
+def rp_selected(workdir, r):
+    """Round r's selected regions, {(label file, superpixel)}."""
+    with open(os.path.join(workdir, rp_selection_file(r))) as f:
+        return {(p, i) for _, p, i in json.load(f)}
+
+
+def jaccard(a, b):
+    return len(a & b) / max(len(a | b), 1)
+
+
+def rp_label_set(cls, fx, workdir, r):
+    """The label set as round r left it (its datalist), made by `cls`."""
+    label = rp_datasets(cls, fx)[1]
+    with open(os.path.join(workdir, f"datalist_{r:02d}.json")) as f:
+        data = json.load(f)
+    label.im_idx = [list(k) for k in data["trg_label_im_idx"]]
+    label.suppix = {k: list(v) for k, v in data["trg_label_suppix"].items()}
+    return label
+
+
+def rp_rounds(fx, variables, workdir, device, rounds=RP_ROUNDS):
+    """The port's run_al_rounds on the fixture from `variables` (saved as
+    the init checkpoint in `workdir`): round 1 my_random, then the
+    paper's selector from the previous round's checkpoint, start_over,
+    validation every fx["val_period"] steps (None: off, each round keeps
+    its last step). Returns {"miou": {round: eval mIoU}, "step0": [each
+    round's step-0 loss]}; the files are in `workdir`."""
+    from mulactseg_tpu_torch.active import RegionActiveSet
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.data.synthetic import SyntheticRegionDataset
+    from mulactseg_tpu_torch.engine import rounds as port_rounds
+    from mulactseg_tpu_torch.engine.checkpoint import save_checkpoint
+
+    cfg = Config(**rp_config_kw(fx, workdir, rounds))
+    os.makedirs(workdir, exist_ok=True)
+    init = os.path.join(workdir, "init")
+    save_checkpoint(init, rp_model(variables))
+    step0 = []
+    pool, label, val = rp_datasets(SyntheticRegionDataset, fx)
+    with mock.patch.object(port_rounds, "get_model",
+                           lambda *a, **k: rp_model(variables)):
+        miou = port_rounds.run_al_rounds(
+            cfg, RegionActiveSet(cfg, pool, label),
+            val_dataset=val if fx["val_period"] else None, eval_dataset=val,
+            init_checkpoint=init, device=device,
+            metrics_cb=lambda it, aux: it or step0.append(
+                float(aux["train_loss"])))
+    return {"miou": miou, "step0": step0}
+
+
+def rp_generator(fx, state_dict, device):
+    """The recipe's pseudo-labeller (eval_save_cosplbl_prop_includeonehot)
+    of the fixture's model with the weights `state_dict`, float32, on
+    `device`."""
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.plbl import METHOD_TO_PLBL, PseudoLabelGenerator
+
+    model = rp_model(device=device)
+    model.load_state_dict(state_dict)
+    cfg = Config(**{**rp_config_kw(fx, "unused"),
+                    "method": "eval_save_cosplbl_prop_includeonehot"})
+    return PseudoLabelGenerator(model, cfg, METHOD_TO_PLBL[cfg.method],
+                                device=device)
+
+
+def rp_batches(label):
+    """The label set's items as single-image batches, in order."""
+    from mulactseg_tpu_torch.data.loader import DataProvider
+
+    return DataProvider(label, 1, shuffle=False, drop_last=False,
+                        infinite=False, num_workers=0)
+
+
+def rp_plbl(gen, label):
+    """gen's pseudo-labels of `label`: {label file: (H, W) uint8 map}."""
+    with torch.no_grad():
+        return {b["fnames"][0][1]: gen.plbl_for_batch(b, label.suppix).to(
+            torch.uint8).cpu().numpy() for b in rp_batches(label)}
+
+
+def plbl_margins(gen, batch, suppix):
+    """How far each pixel's cosine pseudo-label decision is from flipping,
+    in float64 from gen's float32 forward of one image, for the recipe's
+    type (cosprop_includeonehot: propagation, median thresholds, no
+    filters; plbl/cosine_prop.py): for a pixel with prototypes of its own
+    superpixel, its best similarity less the best of another class; for
+    a propagated pixel, the least distance of a candidate's similarity to
+    that prototype's threshold, and the best similarity among the
+    winning superpixel's prototypes less the best of another class.
+    (P,) numpy, inf where no decision could flip."""
+    from mulactseg_tpu_torch.engine.evaluate import eval_forward
+    from mulactseg_tpu_torch.ops.segment_max import segment_max_plain
+
+    _, _, psid, pcls, pok, adj, valid = (
+        torch.from_numpy(np.asarray(a)) for a in gen.host_prep(batch, suppix))
+    psid, pcls, valid = psid.long(), pcls.long(), valid.bool()
+    feat, logits = eval_forward(gen.model, batch["images"], gen.dev, False,
+                                return_feat=True)
+    f = feat[0].flatten(1).t().double().cpu()
+    probs = torch.softmax(logits[0].float(), dim=0).flatten(1).t().cpu()
+    spx = torch.from_numpy(np.asarray(batch["spx"][0]).reshape(-1)).long()
+    P, S, inf = f.shape[0], gen.cfg.nseg, float("inf")
+    _, argpix = segment_max_plain(probs, torch.where(valid, spx, S).int(), S)
+    src = argpix[psid.clamp(0, S - 1), pcls].long()
+    pok = pok.bool() & (src < P) & (psid < S)
+    sim = f @ torch.where(pok[:, None], f[src.clamp(0, P - 1)], 0.0).t()
+
+    def gap(mask):
+        s = torch.where(mask, sim, -inf)
+        best = pcls[s.argmax(-1)]
+        other = mask & (pcls[None, :] != best[:, None])
+        g = s.amax(-1) - torch.where(other, sim, -inf).amax(-1)
+        return torch.nan_to_num(g, nan=inf)
+
+    own = (psid[None, :] == spx[:, None]) & pok[None, :]
+    s_own = torch.where(own, sim, -inf)
+    assigned = valid & own.any(-1)
+    key = torch.where(assigned, s_own.argmax(-1), -1)
+    thr = torch.ones(psid.shape[0], dtype=torch.float64)
+    for k in key[key >= 0].unique().tolist():
+        v = s_own.amax(-1)[key == k].sort().values
+        thr[k] = v[(v.numel() - 1) // 2]  # the lower median
+    cand = adj.t()[spx] & pok[None, :]
+    to_thr = torch.where(cand, (sim - thr[None, :]).abs(), inf).amin(-1)
+    top = torch.where(cand & (sim > thr[None, :]), psid[None, :], -1).amax(-1)
+    within_top = gap(cand & (psid[None, :] == top[:, None]))
+    return torch.where(assigned, gap(own),
+                       torch.minimum(to_thr, within_top)).numpy()
+
+
+def round_parity_slice(dev, smi, workdir):
+    """The round loop held against itself across devices (docstring, item
+    8h): RP_ROUNDS free-running rounds of the fixture on the card, then
+    on the CPU through the plain versions, and the pseudo-labels of the
+    card's last checkpoint on both. Returns (its line, the path's
+    launches)."""
+    from mulactseg_tpu_torch.data.synthetic import SyntheticRegionDataset
+    from mulactseg_tpu_torch.engine.checkpoint import load_checkpoint
+    from mulactseg_tpu_torch.ops import _build
+
+    fx = RP_FIXTURE
+    variables = rp_init()
+    t0 = time.perf_counter()
+    _sync(dev)
+    _build.reset_launches()
+    card = rp_rounds(fx, variables, os.path.join(workdir, "card"), dev)
+    _sync(dev)
+    round_launches = dict(_build.LAUNCHES)
+    card_s = time.perf_counter() - t0
+    steps = RP_ROUNDS * fx["steps"]
+    check(round_launches == {k: steps for k in STAGE1_KERNELS},
+          f"round parity: launches {round_launches}, want each of "
+          f"{STAGE1_KERNELS} once per stage-1 step ({steps}) and no other")
+    t1 = time.perf_counter()
+    cpu = rp_rounds(fx, variables, os.path.join(workdir, "cpu"), "cpu")
+    cpu_s = time.perf_counter() - t1
+    rows = []
+    for r in range(1, RP_ROUNDS + 1):
+        a, b = (rp_selected(os.path.join(workdir, side), r)
+                for side in ("card", "cpu"))
+        gap = abs(card["step0"][r - 1] - cpu["step0"][r - 1]) / max(
+            abs(cpu["step0"][r - 1]), 1e-6)
+        rows.append({"round": r, "jaccard": jaccard(a, b),
+                     "regions": len(b), "step0_rel_gap": gap,
+                     "miou": [card["miou"][r], cpu["miou"][r]]})
+        print(f"round parity, round {r}: card against CPU selection "
+              f"Jaccard {rows[-1]['jaccard']} ({len(a)}/{len(b)} regions), "
+              f"step-0 loss gap {gap:.3e} relative", flush=True)
+    # the pseudo-labels of the card's last checkpoint, on the card and on
+    # the CPU, and of each side's own last checkpoint
+    last = f"checkpoint{RP_ROUNDS:02d}"
+    label = rp_label_set(SyntheticRegionDataset, fx,
+                         os.path.join(workdir, "card"), RP_ROUNDS)
+    weights = load_checkpoint(os.path.join(workdir, "card", last))[
+        "model_state_dict"]
+    card_gen = rp_generator(fx, weights, dev)
+    _sync(dev)
+    _build.reset_launches()
+    on_card = rp_plbl(card_gen, label)
+    _sync(dev)
+    plbl_launches = dict(_build.LAUNCHES)
+    cpu_gen = rp_generator(fx, weights, "cpu")
+    on_cpu = rp_plbl(cpu_gen, label)
+    own_cpu = rp_plbl(rp_generator(fx, load_checkpoint(os.path.join(
+        workdir, "cpu", last))["model_state_dict"], "cpu"), label)
+    # each pixel where the card's map differs: its decision's margin on
+    # the CPU
+    margins = []
+    for b in rp_batches(label):
+        k = b["fnames"][0][1]
+        d = np.flatnonzero(on_card[k] != on_cpu[k])
+        if d.size:
+            margins += plbl_margins(cpu_gen, b, label.suppix)[d].tolist()
+    wall_s = time.perf_counter() - t0
+    n_lbl = len(label)
+    check(plbl_launches == {"seg_max_fwd": n_lbl},
+          f"round parity plbl of {n_lbl} images launched {plbl_launches}, "
+          "want seg_max_fwd once per image")
+    differ = len(margins)
+    free = sum(int((on_card[k] != own_cpu[k]).sum()) for k in on_cpu)
+    pixels = sum(m.size for m in on_cpu.values())
+    widest = max(margins, default=None)
+    print(f"round parity plbl at the card's round-{RP_ROUNDS} checkpoint: "
+          f"{differ} of {pixels} pixels differ between card and CPU, their "
+          f"decision margins at most {widest} ({free} against the CPU's own "
+          "checkpoint)", flush=True)
+    print(f"round parity: {wall_s:.1f} s ({card_s:.1f} s the card's rounds, "
+          f"{cpu_s:.1f} s the CPU's) on {smi}", flush=True)
+    check(all(r["jaccard"] == 1.0 and r["regions"] > 0 for r in rows),
+          f"round parity: the card's selections part from the CPU's {rows}")
+    check(on_cpu.keys() == on_card.keys() and any(
+        bool((m != 255).any()) for m in on_cpu.values()),
+          "round parity: no pseudo-labels")
+    check(differ <= RP_PLBL_TIES * pixels and all(
+        m <= RP_TIE_MARGIN for m in margins),
+          f"round parity: {differ} plbl pixels differ between card and CPU, "
+          f"their decision margins at most {widest}")
+    check(all(math.isfinite(v) for v in card["step0"] + cpu["step0"]),
+          "round parity: non-finite step-0 loss")
+    line = {"round_parity": {
+        "card": smi, "fixture": fx, "rounds": rows, "wall_s": wall_s,
+        "card_rounds_s": card_s, "cpu_rounds_s": cpu_s,
+        "plbl_images": n_lbl, "plbl_pixels": pixels,
+        "plbl_pixels_differ_synced": differ,
+        "plbl_differ_margin_max": widest,
+        "plbl_pixels_differ_free": free}}
+    return line, dict(Counter(round_launches) + Counter(plbl_launches))
+
+
 def recipe_commands(script, workdir, data_root):
     """The commands the port's recipe script issues, in order, recorded by
     a stub `python` on PATH (bash runs the script; nothing else runs)."""
@@ -4774,6 +5104,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         al_line, al_launches = al_rounds_slice(variables, dev, smi, tmp)
     small_selector_check(dev, variables)
+    # the round loop's 5 free-running rounds on the card against the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        rp_line, rp_launches = round_parity_slice(dev, smi, tmp)
     # data parallelism: a group of one rank under NCCL, then two ranks
     # sharing the card under gloo (NCCL refuses two ranks on one card),
     # each on cuda:<this card> explicitly
@@ -4846,7 +5179,8 @@ def main():
                "voc": voc_launches, "zoo": zoo_launches,
                "criteria": crit_launches, "loader_arms": arms_launches,
                "evals": evals_launches, "dp": dp_launches,
-               "dp_criteria": dpc_launches, "profile": prof_launches}
+               "dp_criteria": dpc_launches, "profile": prof_launches,
+               "round_parity": rp_launches}
     launches = sum((Counter(n) for n in by_path.values()), Counter())
     check(all(launches[name] > 0 for name in KERNELS),
           f"a kernel was never launched on a main path: {dict(launches)}")
@@ -4854,7 +5188,8 @@ def main():
     # every slice's line at the end, the kernels line and the card last
     compact = {"separators": (",", ":")}
     for line in (zoo_line, crit_line, cli_line, arms_line, voc_line,
-                 evals_line, dp_line, dpc_line, prof_line, eval_stats):
+                 evals_line, dp_line, dpc_line, prof_line, rp_line,
+                 eval_stats):
         print(json.dumps(line, **compact))
     print(json.dumps({
         "slice": "cityscapes stage-1 train step", "card": smi,
