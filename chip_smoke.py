@@ -139,6 +139,36 @@
    Its line: the fixture, per round the Jaccard, regions, step-0 gap and
    both eval mIoUs, the pixels that differ at synced weights and against
    the CPU's own last checkpoint, the seconds.
+8i. The bf16 recipe path against the JAX package (bf16_parity), after
+   the round loop: tests/data/bf16_reference.npz, written on the CPU by
+   tools_dev/bf16_reference.py, holds the JAX package's dtype=bfloat16
+   path on the fixtures of BF16_FIXTURES (the recipe's model at full
+   width, batch 4, 96x96, nseg 24; the CPU tests' twin at batch 4, 64x64,
+   nseg 16), whose weights (bf16_variables, checked against the file's
+   digest) and inputs (bf16_inputs) come from seeds. On each, the port's
+   entry points with cfg.dtype "bfloat16" (bf16_port_outputs):
+   make_eval_step and the features' eval forward, a train-mode forward,
+   BF16_STEPS make_train_step steps (AdamW, poly), the recipe's
+   PseudoLabelGenerator.generate and the paper's selector on a pool of 4
+   images, on the card with every launch counter set to 0 just before
+   and read just after (K1-K4 once a step, K5 once a pseudo-labelled
+   image, nothing else), then on the CPU in float32 and under CPU
+   bfloat16 autocast. Each float output's distance (bf16_distance) on
+   the card must lie within BF16_TOL, twice the JAX package's own spread
+   under one bf16 ulp on 1% of its input pixels; the seven eval-mode
+   stage outputs are held by the share of their values that differ
+   bitwise, so a stage whose casts are not the JAX package's fails; the
+   step by its gradient, the norms per leaf of the gradient and of the
+   update, and the change of the BN statistics, which a step that does
+   nothing misses by 100%; each exact
+   output (the predignore argmax map and its confusion matrix, the
+   pseudo-labels, the selected regions) must equal the file's outside
+   the pixels or regions that flip under its perturbations. The CPU's
+   float32 run is the control: it must fall outside on an eval output,
+   or the check could not tell a bf16 path from a float32 one. Every
+   distance prints beside its tolerance and the CPU's two. Its line:
+   per fixture and output the three distances and the tolerance, the
+   seconds on the card and on the CPU.
 8f. Data parallelism (dp; mulactseg_tpu_torch/parallel/mesh.py), the
    recipe model at the stage-1 shape from the seeded weights, global
    batch 4, bf16. (a) World 1: a group of one rank under NCCL
@@ -347,7 +377,7 @@ numbers (the zoo and criteria lines, items 8.1-8.2; the cli_recipe line,
 item 8b; the loader_arms line, item 8d; the voc_recipe line, item 8c;
 the evals line, item 8e; the dp line, item 8f; the dp_criteria line,
 item 8g; the profile_phase line, item 14; the round_parity line, item
-8h; evaluation;
+8h; the bf16_parity line, item 8i; evaluation;
 stage 1 at both nseg; plbl; the al_rounds line: per round the selection
 seconds, train img/s, validations, eval mIoU, checkpoint save and load
 seconds; then plbl img/s, stage-2 img/s and mIoU, peak memory and the
@@ -364,8 +394,10 @@ Any failure raises and exits non-zero; there is no CPU fallback.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -376,6 +408,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from collections import Counter
 from pathlib import Path
 from unittest import mock
@@ -463,6 +496,66 @@ RP_CLASSES, RP_SEED, RP_ROUNDS = 7, 0, 5
 RP_PLBL_TIES, RP_TIE_MARGIN = 2e-2, 1e-5
 RP_FIXTURE = dict(hh=64, nseg=16, pool=6, val=3, budget=24, batch=4,
                   steps=8, lr=3e-3, val_period=4)
+# the bf16 recipe path against the JAX package's dtype=bfloat16 model
+# (bf16_parity): the reference tools_dev/bf16_reference.py writes, and two
+# fixtures: the recipe's model at full width and rp_model's twin, each at
+# batch `batch`, hw x hw, nseg superpixels, `classes` outputs, a selector
+# pool of `pool` images and `budget` clicks, weights and inputs from `seed`
+BF16_REFERENCE = HERE / "tests" / "data" / "bf16_reference.npz"
+BF16_FIXTURES = {
+    "full": dict(batch=4, hw=96, nseg=24, classes=NUM_CLASSES, pool=4,
+                 budget=24, seed=0),
+    "twin": dict(batch=4, hw=64, nseg=16, classes=RP_CLASSES, pool=4,
+                 budget=16, seed=1)}
+# BF16_STEPS train steps; the reference keeps the float maps at a seeded
+# sample of BF16_LOGIT_PIXELS (logits) and BF16_FEAT_PIXELS (features),
+# each stage output at BF16_STAGE_VALUES values and the step-0 gradient
+# at BF16_GRAD_VALUES
+BF16_STEPS, BF16_LOGIT_PIXELS, BF16_FEAT_PIXELS = 3, 2048, 256
+BF16_STAGE_VALUES, BF16_GRAD_VALUES = 4096, 65536
+# the last BN of each residual block at this share of its scale: at full
+# scale the JAX package's own bf16 train step is chaotic at random weights
+# (one bf16 ulp on 1% of the pixels moves its step-0 gradient by 85-100%
+# at batches 4-16, 64-128 px), at a tenth by 34-40% (PERF.md, PR 18)
+BF16_RESIDUAL_SCALE = 0.1
+BF16_PARTS = ("ce_loss", "mc_loss", "group_loss", "train_loss")
+# the stages whose eval and train-mode outputs place a gap
+BF16_STAGE_MODULES = {
+    "stem": "backbone.maxpool", "layer1": "backbone.layer1",
+    "layer2": "backbone.layer2", "layer3": "backbone.layer3",
+    "layer4": "backbone.layer4", "aspp": "classifier.aspp",
+    "decoder": "classifier.classifier"}
+# the exact outputs: equal to the reference's but where they flip under
+# the JAX package's own perturbations
+BF16_EXACT = ("eval_pred", "plbl", "selected")
+# each float output's tolerance: twice the JAX package's own spread under
+# one bf16 ulp on 1% of its input pixels (its 'spread_input/<key>' in
+# BF16_REFERENCE, tools_dev/bf16_reference.py), rounded up to two
+# significant digits; set before the first card run, and never raised
+# after one
+BF16_TOL = {
+    "full": {"eval_logits": 0.0043, "eval_feat": 0.0064,
+             "stage_eval/stem": 0.32, "stage_eval/layer1": 0.72,
+             "stage_eval/layer2": 0.83, "stage_eval/layer3": 0.98,
+             "stage_eval/layer4": 0.96, "stage_eval/aspp": 0.69,
+             "stage_eval/decoder": 0.66, "stage_train/stem": 0.02,
+             "stage_train/layer1": 0.036, "stage_train/layer2": 0.046,
+             "stage_train/layer3": 0.053, "stage_train/layer4": 0.066,
+             "stage_train/aspp": 0.12, "stage_train/decoder": 0.13,
+             "train_logits": 0.037, "bn_delta": 0.013, "loss0": 0.008,
+             "losses": 0.0087, "grad0": 0.83, "grad0_norm": 0.18,
+             "update_norm": 0.0087, "scores": 0.0056},
+    "twin": {"eval_logits": 0.0062, "eval_feat": 0.012,
+             "stage_eval/stem": 0.33, "stage_eval/layer1": 0.61,
+             "stage_eval/layer2": 0.77, "stage_eval/layer3": 0.79,
+             "stage_eval/layer4": 0.83, "stage_eval/aspp": 0.62,
+             "stage_eval/decoder": 0.63, "stage_train/stem": 0.02,
+             "stage_train/layer1": 0.033, "stage_train/layer2": 0.046,
+             "stage_train/layer3": 0.064, "stage_train/layer4": 0.083,
+             "stage_train/aspp": 0.072, "stage_train/decoder": 0.11,
+             "train_logits": 0.058, "bn_delta": 0.017, "loss0": 0.022,
+             "losses": 0.023, "grad0": 0.86, "grad0_norm": 0.15,
+             "update_norm": 0.025, "scores": 0.0018}}
 # the __global__ kernels of csrc/ that each launch counter's wrapper
 # launches, one of each a count
 COUNTER_KERNELS = {"pixel_ce_fwd": ("pixel_ce_fwd_kernel",),
@@ -2813,17 +2906,27 @@ def plbl_margins(gen, batch, suppix):
     winning superpixel's prototypes less the best of another class.
     (P,) numpy, inf where no decision could flip."""
     from mulactseg_tpu_torch.engine.evaluate import eval_forward
+
+    feat, logits = eval_forward(gen.model, batch["images"], gen.dev, False,
+                                return_feat=True)
+    return decision_margins(
+        feat[0].flatten(1).t(), torch.softmax(logits[0].float(), dim=0),
+        batch["spx"][0], gen.host_prep(batch, suppix), gen.cfg.nseg)
+
+
+def decision_margins(feat, probs, spx, prep, nseg):
+    """plbl_margins' float64 part: feat (P, Ch) of one image, probs its
+    (C, H, W) softmax, spx its (H, W) superpixel map and prep the
+    generator's host_prep of it. (P,) numpy."""
     from mulactseg_tpu_torch.ops.segment_max import segment_max_plain
 
     _, _, psid, pcls, pok, adj, valid = (
-        torch.from_numpy(np.asarray(a)) for a in gen.host_prep(batch, suppix))
+        torch.from_numpy(np.asarray(a)) for a in prep)
     psid, pcls, valid = psid.long(), pcls.long(), valid.bool()
-    feat, logits = eval_forward(gen.model, batch["images"], gen.dev, False,
-                                return_feat=True)
-    f = feat[0].flatten(1).t().double().cpu()
-    probs = torch.softmax(logits[0].float(), dim=0).flatten(1).t().cpu()
-    spx = torch.from_numpy(np.asarray(batch["spx"][0]).reshape(-1)).long()
-    P, S, inf = f.shape[0], gen.cfg.nseg, float("inf")
+    f = torch.as_tensor(feat).double().cpu()
+    probs = torch.as_tensor(probs).float().flatten(1).t().cpu()
+    spx = torch.from_numpy(np.asarray(spx).reshape(-1)).long()
+    P, S, inf = f.shape[0], nseg, float("inf")
     _, argpix = segment_max_plain(probs, torch.where(valid, spx, S).int(), S)
     src = argpix[psid.clamp(0, S - 1), pcls].long()
     pok = pok.bool() & (src < P) & (psid < S)
@@ -2949,6 +3052,550 @@ def round_parity_slice(dev, smi, workdir):
         "plbl_differ_margin_max": widest,
         "plbl_pixels_differ_free": free}}
     return line, dict(Counter(round_launches) + Counter(plbl_launches))
+
+
+# -- the bf16 recipe path against the JAX package's bf16 model (bf16_parity) --
+def tree_leaves(tree, prefix=""):
+    """(path, leaf) of a nested dict, the keys joined by '/', sorted."""
+    out = []
+    for k in sorted(tree):
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(tree[k], dict):
+            out += tree_leaves(tree[k], path)
+        else:
+            out.append((path, tree[k]))
+    return out
+
+
+def variables_digest(variables):
+    """sha256 of a variable tree: each leaf's path, shape and float32
+    bytes, in sorted order."""
+    h = hashlib.sha256()
+    for path, a in tree_leaves(variables):
+        a = np.ascontiguousarray(np.asarray(a, np.float32))
+        h.update(f"{path}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def bf16_config_kw(name):
+    """The fixture's configuration as keywords both packages' Config take:
+    the recipe's model, criterion and optimizer (AdamW, poly), bf16."""
+    fx = BF16_FIXTURES[name]
+    return dict(num_classes=fx["classes"] - 1, nseg=fx["nseg"],
+                crop_size=(fx["hw"], fx["hw"]), train_batch_size=fx["batch"],
+                val_batch_size=2, num_workers=0, val_num_workers=0,
+                dtype="bfloat16", separable_conv=True, n_devices=1,
+                method="active_joint_multi_predignore_lossdecomp")
+
+
+def bf16_model(name, variables=None, device="cpu"):
+    """The fixture's model on `device`, dropout off (its noise is
+    framework-specific): the recipe's at full width, or rp_model's twin;
+    `variables` (the JAX package's layout) carried in when given."""
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.models.factory import get_model
+    from mulactseg_tpu_torch.models.layers import Dropout
+
+    if name == "twin":
+        return rp_model(variables, device)
+    cfg = Config(**bf16_config_kw(name))
+    model = get_model(cfg.model, cfg.num_model_classes, cfg.output_stride,
+                      separable_conv=True, device=device)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    if variables is not None:
+        convert.load_variables(model, variables)
+    return model
+
+
+def bf16_variables(name):
+    """The fixture's weights in the JAX package's layout, from seeds alone:
+    models/convert.random_variables from the fixture's seed, then (as
+    tests/test_torch_port_model.py's perturb) every BN scale and variance
+    scaled by U(0.8, 1.2) and every BN bias and mean shifted by U(-0.1,
+    0.1), drawn in sorted leaf order from the seed + 1, so that every
+    leaf shows in the outputs; the scale of each residual block's last
+    BN (bn3) then times BF16_RESIDUAL_SCALE."""
+    from mulactseg_tpu_torch.models import convert
+
+    seed = BF16_FIXTURES[name]["seed"]
+    variables = convert.random_variables(bf16_model(name), seed)
+    rng = np.random.RandomState(seed + 1)
+    for path, a in tree_leaves(variables):
+        leaf = path.rsplit("/", 1)[-1]
+        if leaf in ("scale", "var"):
+            a *= rng.uniform(0.8, 1.2, a.shape).astype(np.float32)
+        elif leaf in ("bias", "mean"):
+            a += rng.uniform(-0.1, 0.1, a.shape).astype(np.float32)
+        if path.endswith("/bn3/scale"):
+            a *= np.float32(BF16_RESIDUAL_SCALE)
+    return variables
+
+
+def bf16_inputs(name):
+    """The fixture's inputs, numpy from its seed + 2: BF16_STEPS train
+    batches (images (B, 3, H, W) float32 at per-image scales and offsets;
+    labels, a ground truth of 3 x 3 cells of C - 1 classes or ignore;
+    irregular superpixels; target, the multi-hot of the labels in each
+    superpixel, (B, S, C); spmask over a 60% selection, with its ids in
+    'selected'; target_bits), the first of which the eval, the train-mode
+    forward and the pseudo-labeller read; and the selector's pool: uint8
+    (N, H, W, 3) images, their ground truth and one superpixel map."""
+    from mulactseg_tpu_torch.data.synthetic import (
+        irregular_superpixels,
+        multi_hot_from_gt,
+    )
+    from mulactseg_tpu_torch.losses.fused import pixel_target_bits
+
+    fx = BF16_FIXTURES[name]
+    B, hw, S, C = fx["batch"], fx["hw"], fx["nseg"], fx["classes"]
+    rng = np.random.RandomState(fx["seed"] + 2)
+
+    def ground_truth(n):
+        # 3 x 3 cells of a class each, class C - 1 standing for ignore, so
+        # that some superpixels hold one class (the CE term's pixels)
+        cells = rng.randint(0, C, (n, 3, 3))
+        idx = np.arange(hw) * 3 // hw
+        gt = cells[:, idx[:, None], idx[None, :]]
+        return np.where(gt == C - 1, 255, gt).astype(np.int32)
+
+    batches = []
+    for _ in range(BF16_STEPS):
+        spx = np.stack([irregular_superpixels(hw, hw, S, rng)
+                        for _ in range(B)]).astype(np.int32)
+        labels = ground_truth(B)
+        target = np.stack([multi_hot_from_gt(labels[b], spx[b], S, C - 1)
+                           for b in range(B)])
+        sel = rng.rand(B, S) < 0.6
+        spmask = np.take_along_axis(sel, spx.reshape(B, -1), 1).reshape(
+            B, hw, hw)
+        images = (rng.randn(B, 3, hw, hw)
+                  * np.linspace(0.5, 2.0, B)[:, None, None, None]
+                  + np.linspace(-2.0, 2.0, B)[:, None, None, None]
+                  ).astype(np.float32)
+        batches.append({
+            "images": images, "labels": labels, "target": target,
+            "spx": spx, "spmask": spmask,
+            "target_bits": np.stack([pixel_target_bits(target[b], spx[b],
+                                                       spmask[b])
+                                     for b in range(B)]),
+            "selected": [np.flatnonzero(s).tolist() for s in sel]})
+    pool = {"images": rng.randint(0, 256, (fx["pool"], hw, hw, 3)).astype(
+                np.uint8),
+            "labels": ground_truth(fx["pool"]),
+            "spx": irregular_superpixels(hw, hw, S, rng).astype(np.int32)}
+    return batches, pool
+
+
+def bf16_pixels(name, n):
+    """A seeded sample of n of the fixture's B * H * W pixels, sorted: the
+    pixels of the float maps that the reference keeps."""
+    fx = BF16_FIXTURES[name]
+    rng = np.random.RandomState(fx["seed"] + 3)
+    return np.sort(rng.choice(fx["batch"] * fx["hw"] ** 2, n, replace=False))
+
+
+def bf16_sample(name, key, x, n):
+    """A seeded sample of n of the values of x (flat, C order; seeded by
+    the fixture and the output's key), in order; all of them where x has
+    no more."""
+    x = np.asarray(x).reshape(-1)
+    if x.size <= n:
+        return x.copy()
+    rng = np.random.RandomState(zlib.crc32(f"{name}/{key}".encode()))
+    return x[np.sort(rng.choice(x.size, n, replace=False))]
+
+
+def bf16_step_outputs(name, grads, before, after):
+    """The train step's outputs that the reference keeps, from either
+    package's trees in the JAX layout: the step-0 gradient at a sample of
+    BF16_GRAD_VALUES values of its leaves in sorted order, and its norm
+    per leaf; the norm per leaf of the parameters' update over the
+    steps."""
+    leaves = tree_leaves(grads)
+    flat = np.concatenate([np.asarray(a, np.float32).reshape(-1)
+                           for _, a in leaves])
+    before = dict(tree_leaves(before))
+    return {"grad0": bf16_sample(name, "grad0", flat, BF16_GRAD_VALUES),
+            "grad0_norm": {k: np.float64(np.linalg.norm(a))
+                           for k, a in leaves},
+            "update_norm": {k: np.float64(np.linalg.norm(
+                np.float64(a) - before[k])) for k, a in tree_leaves(after)}}
+
+
+def bf16_pool_sets(cls, name, pool):
+    """Pool and empty label set of the selector over `pool`, made by `cls`
+    (either package's SyntheticRegionDataset) with its images, ground
+    truth and superpixel map put in."""
+    from mulactseg_tpu_torch.data.synthetic import multi_hot_from_gt
+
+    fx = BF16_FIXTURES[name]
+    out = []
+    for split in ("active-ulabel", "active-label"):
+        ds = cls(n_images=fx["pool"], H=fx["hw"], W=fx["hw"],
+                 num_classes=fx["classes"] - 1, nseg=fx["nseg"], split=split)
+        ds.images = list(pool["images"])
+        ds.gts = list(pool["labels"])
+        ds.spx_map = pool["spx"]
+        ds.multi_hot_cls = np.stack([
+            multi_hot_from_gt(g, pool["spx"], fx["nseg"], fx["classes"] - 1)
+            for g in ds.gts])
+        ds.isselected = np.zeros(ds.multi_hot_cls.shape[:-1], np.float32)
+        ds.suppix = {k[2]: np.unique(pool["spx"]).tolist() for k in ds.im_idx}
+        out.append(ds)
+    out[1].suppix, out[1].im_idx = {}, []
+    return out
+
+
+def bf16_plbl_items(batch, layout="nchw"):
+    """The first train batch as the pseudo-labeller's single-image items
+    (the eval_region_*_all contract) and its suppix: each image's selected
+    superpixels. layout "nhwc" for the JAX package."""
+    items, suppix = [], {}
+    for b in range(batch["images"].shape[0]):
+        img = batch["images"][b:b + 1]
+        key = [f"img_{b}.png", f"lbl_{b}.png", f"spx_{b}.pkl"]
+        items.append({
+            "images": img.transpose(0, 2, 3, 1) if layout == "nhwc" else img,
+            "labels": batch["labels"][b:b + 1],
+            "target": batch["target"][b:b + 1],
+            "spx": batch["spx"][b:b + 1], "spmask": batch["spmask"][b:b + 1],
+            "fnames": [key]})
+        suppix[key[2]] = batch["selected"][b]
+    return items, suppix
+
+
+def eval_confusion(pred, labels, n):
+    """(n, n) confusion matrix of a predicted map against the ground truth
+    (255 ignored), rows the truth."""
+    ok = labels != 255
+    return np.bincount(labels[ok].astype(np.int64) * n + pred[ok],
+                       minlength=n * n).reshape(n, n)
+
+
+def bf16_outputs_common(name, eval_logits, eval_feat, labels):
+    """The eval outputs both packages derive alike: the logits and features
+    at the kept pixels (rows of (pixels, channels)), the predignore argmax
+    over the C - 1 real classes, and its confusion matrix."""
+    C = eval_logits.shape[1]
+    pred = eval_logits[:, :-1].argmax(1).astype(np.uint8)
+
+    def rows(x, n):
+        return np.ascontiguousarray(x.transpose(0, 2, 3, 1).reshape(
+            -1, x.shape[1])[bf16_pixels(name, n)])
+
+    return {"eval_logits": rows(eval_logits, BF16_LOGIT_PIXELS),
+            "eval_feat": rows(eval_feat, BF16_FEAT_PIXELS),
+            "eval_pred": pred,
+            "eval_confusion": eval_confusion(pred, labels, C - 1)}
+
+
+def bf16_port_outputs(name, variables, inputs, device, cpu_autocast=False):
+    """The port's bf16 path on `device` through its entry points, from the
+    fixture's weights: make_eval_step and eval_forward (features), a
+    train-mode forward (logits, BN statistics), BF16_STEPS make_train_step
+    steps (the step-0 loss and parts, the step-0 gradient, each step's
+    loss, the update of the parameters), PseudoLabelGenerator.generate
+    (the recipe's type; its PNGs read back) and the paper's selector
+    (scores and selected regions); for the twin each stage's output in
+    eval and train mode. cpu_autocast runs the CPU under bfloat16
+    autocast where the card would. Returns {key: array, or {leaf path:
+    array}}, as the reference stores them."""
+    from types import SimpleNamespace
+
+    from mulactseg_tpu_torch import device as port_device
+    from mulactseg_tpu_torch.acquisition import get_selector
+    from mulactseg_tpu_torch.active import RegionActiveSet
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.data.synthetic import SyntheticRegionDataset
+    from mulactseg_tpu_torch.engine import train as port_train
+    from mulactseg_tpu_torch.engine.evaluate import eval_forward
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.plbl import generator as port_generator
+    from mulactseg_tpu_torch.utils.png import read_gray8
+
+    dev = torch.device(device)
+    cfg = Config(**bf16_config_kw(name))
+    batches, pool = inputs
+    b0 = batches[0]
+    model = bf16_model(name, variables, dev)
+    autocast = cpu_autocast or port_device.bf16_autocast(dev, cfg)
+    with contextlib.ExitStack() as stack:
+        if cpu_autocast:
+            for mod in (port_train, port_generator):
+                stack.enter_context(mock.patch.object(
+                    mod, "bf16_autocast", lambda d, c: True))
+        stages = {}
+        hooks = [model.get_submodule(path).register_forward_hook(
+            lambda m, i, o, s=stage: stages.__setitem__(s, o))
+            for stage, path in BF16_STAGE_MODULES.items()]
+
+        def stage_outputs(mode):
+            return {f"stage_{mode}/{k}": bf16_sample(
+                name, f"stage_{mode}/{k}", v.float().cpu().numpy(),
+                BF16_STAGE_VALUES) for k, v in stages.items()}
+
+        predict = port_train.make_eval_step(model, cfg, device=dev)
+        logits = predict(b0["images"]).cpu().numpy()
+        out = stage_outputs("eval")
+        feat, _ = eval_forward(model, b0["images"], dev, autocast,
+                               return_feat=True)
+        out.update(bf16_outputs_common(
+            name, logits, feat.float().cpu().numpy(), b0["labels"]))
+        model.train()
+        with torch.no_grad(), torch.autocast(dev.type, dtype=torch.bfloat16,
+                                             enabled=autocast):
+            train_logits = model(torch.as_tensor(b0["images"]).to(dev))
+        out.update(stage_outputs("train"))
+        for h in hooks:
+            h.remove()
+        out["train_logits"] = np.ascontiguousarray(
+            train_logits.cpu().numpy().transpose(0, 2, 3, 1).reshape(
+                -1, train_logits.shape[1])[bf16_pixels(name,
+                                                       BF16_LOGIT_PIXELS)])
+        stats = dict(tree_leaves(variables["batch_stats"]))
+        out["bn_delta"] = {k: a - stats[k] for k, a in tree_leaves(
+            convert.state_dict_to_variables(model.state_dict())[
+                "batch_stats"])}
+        convert.load_variables(model, variables)
+        step = port_train.make_train_step(model, cfg, device=dev)
+        losses = []
+        for i, batch in enumerate(batches):
+            aux = step(batch)
+            if i == 0:
+                out["loss0"] = np.array([float(aux[k]) for k in BF16_PARTS])
+                grads = convert.state_dict_to_variables(
+                    {n: p.grad for n, p in model.named_parameters()})
+            losses.append(float(aux["train_loss"]))
+        out["losses"] = np.array(losses)
+        out.update(bf16_step_outputs(
+            name, grads, {"params": variables["params"]},
+            convert.state_dict_to_variables(dict(model.named_parameters()))))
+        convert.load_variables(model, variables)
+        items, suppix = bf16_plbl_items(b0)
+        pcfg = Config(**{**bf16_config_kw(name),
+                         "method": "eval_save_cosplbl_prop_includeonehot"})
+        gen = port_generator.PseudoLabelGenerator(
+            model, pcfg, "cosprop_includeonehot", device=dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            gen.generate(None, items, save_dir=tmp, suppix=suppix)
+            out["plbl"] = np.stack([read_gray8(os.path.join(
+                tmp, f"lbl_{b}.png")) for b in range(len(items))])
+        out.update(bf16_selection(
+            name, get_selector("my_bvsb_predclsbal_pwr_banignore", cfg),
+            SimpleNamespace(predict_logits=predict), RegionActiveSet, cfg,
+            *bf16_pool_sets(SyntheticRegionDataset, name, pool)))
+    return out
+
+
+def bf16_selection(name, selector, trainer, active_set_cls, cfg, pool,
+                   label):
+    """The selector's region scores (pool images, nseg) and its selected
+    regions at the fixture's budget, as a bool (pool images, nseg) array;
+    either package's selector, trainer and active set."""
+    fx = BF16_FIXTURES[name]
+    scores = np.full((fx["pool"], fx["nseg"]), np.nan, np.float32)
+    for score, path, i in selector.calculate_scores(trainer, pool):
+        scores[int(path.split(",")[2][4:-4]), i] = score
+    selector.select_next_batch(trainer, active_set_cls(cfg, pool, label),
+                               fx["budget"])
+    selected = np.zeros(scores.shape, bool)
+    for spx_path, ids in label.suppix.items():
+        selected[int(spx_path[4:-4]), ids] = True
+    return {"scores": scores, "selected": selected}
+
+
+def bf16_flatten(tree):
+    """{fixture: {key: array or {leaf: array}}} -> the .npz's flat
+    {"fixture/key": array, "fixture/key::leaf": array}."""
+    flat = {}
+    for name, outputs in tree.items():
+        for key, v in outputs.items():
+            if isinstance(v, dict):
+                for leaf, a in v.items():
+                    flat[f"{name}/{key}::{leaf}"] = np.asarray(a)
+            else:
+                flat[f"{name}/{key}"] = np.asarray(v)
+    return flat
+
+
+def bf16_reference(path=BF16_REFERENCE):
+    """The reference file, unflattened: {fixture: {key: array or {leaf:
+    array}}}. Its keys beside the outputs: 'digest' (variables_digest of
+    the fixture's weights), 'spread_input/<key>' and 'spread_weights/
+    <key>' (how far the JAX package moves from itself under one bf16 ulp
+    on 1% of its input pixels, and under its weights scaled by 1 + 1e-3
+    N(0, 1)), 'flips/<key>' (the pixels or regions of an exact output
+    that flip under either), 'novel/<key>' (the most of those one
+    perturbed run flips alone) and 'plbl_margin' (each pseudo-label
+    pixel's decision margin, decision_margins)."""
+    ref = {}
+    with np.load(path) as z:
+        for k in z.files:
+            name, rest = k.split("/", 1)
+            key, _, leaf = rest.partition("::")
+            node = ref.setdefault(name, {})
+            if leaf:
+                node.setdefault(key, {})[leaf] = z[k]
+            else:
+                node[key] = z[k]
+    return ref
+
+
+def bf16_distance(key, got, want):
+    """How far a float output lies from the reference's: the step losses
+    and parts relative to each; the step-0 gradient's sample, its norms
+    per leaf, the update's norms per leaf and the change of the BN
+    running statistics in relative L2 over every value (a zero gradient
+    or update, or statistics left as they were, lie at 1); an eval-mode
+    stage output by the share of its values that differ bitwise from the
+    reference's (both are bf16 values where the casts agree); a
+    train-mode one, whose values the rounding of the batch statistics
+    moves, by the max abs error relative to its largest value; the rest
+    (logits, features, scores) by the max abs error."""
+    if key in ("loss0", "losses"):
+        return float(np.max(np.abs(got - want) / np.abs(want)))
+    if isinstance(want, dict):
+        check(set(got) == set(want), f"{key}: leaves differ")
+        got, want = (np.concatenate([np.asarray(t[k], np.float64).reshape(-1)
+                                     for k in sorted(want)])
+                     for t in (got, want))
+    if key.startswith("stage_eval/"):
+        return float(np.mean(np.asarray(got, np.float32)
+                             != np.asarray(want, np.float32)))
+    if key.startswith("stage_train/"):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+    if key in ("grad0", "grad0_norm", "update_norm", "bn_delta"):
+        got, want = np.float64(got), np.float64(want)
+        return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    return float(np.abs(got - want).max())
+
+
+# the eval outputs, on one of which the CPU's float32 run must fall
+# outside: the control that the check tells a bf16 path from float32
+BF16_EVAL_KEYS = ("eval_logits", "eval_feat", "scores", "stage_eval/")
+
+
+def bf16_compare(name, ref, runs, labels):
+    """Each output of the runs ({run: port outputs}) against the
+    reference: rows {key: {run: distance, "tol": tolerance}} for the float
+    outputs, and for the exact ones {run: [positions that differ, those
+    outside the JAX package's flip set]}, "flips" (the set's size) and
+    "novel" (the most positions one run of the reference flips that no
+    other does), for the pseudo-labels with the largest reference
+    decision margin of a pixel that differs outside the set; for the
+    confusion matrix over the pixels outside the flip set {run: pixels
+    counted in another cell} (labels: the eval images' ground truth).
+    An exact output holds where no more positions differ outside the
+    flip set than "novel": as many as one more run of the reference's
+    own noise would add. Returns (rows, {run: the outputs that lie
+    outside})."""
+    tols = BF16_TOL[name]
+    rows, bad = {}, {run: [] for run in runs}
+    check(set(tols) == {k for k in ref if k in next(iter(runs.values()))}
+          - set(BF16_EXACT) - {"eval_confusion"},
+          f"{name}: the tolerances do not name every float output")
+    for key, tol in tols.items():
+        rows[key] = {run: bf16_distance(key, out[key], ref[key])
+                     for run, out in runs.items()}
+        rows[key]["tol"] = tol
+        for run in runs:
+            if not rows[key][run] <= tol:
+                bad[run].append(f"{name} {key}: {rows[key][run]:.3g} > {tol}")
+    for key in BF16_EXACT:
+        flips, novel = ref[f"flips/{key}"], int(ref[f"novel/{key}"])
+        rows[key] = {"flips": int(flips.sum()), "novel": novel}
+        for run, out in runs.items():
+            d = out[key] != ref[key]
+            rows[key][run] = [int(d.sum()), int((d & ~flips).sum())]
+            if key == "plbl" and (d & ~flips).any():
+                # the reference's decision margins there (decision_margins)
+                rows[key][f"{run}_margin_max"] = float(
+                    ref["plbl_margin"][d & ~flips].max())
+            if rows[key][run][1] > novel:
+                bad[run].append(
+                    f"{name} {key}: {rows[key][run][1]} positions differ "
+                    f"outside the flip set, one run of the reference flips "
+                    f"{novel} alone")
+    # the confusion matrix outside the flip set: the pixels it counts in
+    # another cell than the reference's
+    keep = ~ref["flips/eval_pred"]
+    n = ref["eval_confusion"].shape[0]
+    want = eval_confusion(ref["eval_pred"][keep], labels[keep], n)
+    rows["eval_confusion"] = {run: int(np.abs(eval_confusion(
+        out["eval_pred"][keep], labels[keep], n) - want).sum() // 2)
+        for run, out in runs.items()}
+    for run in runs:
+        if rows["eval_confusion"][run] > int(ref["novel/eval_pred"]):
+            bad[run].append(f"{name} eval_confusion moves "
+                            f"{rows['eval_confusion'][run]} pixels outside "
+                            "the flip set")
+    return rows, bad
+
+
+def bf16_control_outside(bad):
+    """The messages of a run's outputs outside (bf16_compare) that name an
+    eval output (BF16_EVAL_KEYS)."""
+    return [m for m in bad
+            if m.split(" ")[1].startswith(BF16_EVAL_KEYS)]
+
+
+def bf16_parity_slice(dev, smi):
+    """The port's bf16 path on the card against the JAX package's
+    dtype=bfloat16 model (docstring, item 8i): each fixture's outputs,
+    card, CPU float32 and CPU autocast, against BF16_REFERENCE. Returns
+    (its line, the path's launches)."""
+    from mulactseg_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    ref = bf16_reference()
+    line, launches, bad = {}, Counter(), []
+    for name, fx in BF16_FIXTURES.items():
+        variables = bf16_variables(name)
+        check(variables_digest(variables) == str(ref[name]["digest"]),
+              f"bf16 parity {name}: the weights made from seeds are not "
+              "the reference's")
+        inputs = bf16_inputs(name)
+        t1 = time.perf_counter()
+        _sync(dev)
+        _build.reset_launches()
+        runs = {"card": bf16_port_outputs(name, variables, inputs, dev)}
+        _sync(dev)
+        card_s = time.perf_counter() - t1
+        got = dict(_build.LAUNCHES)
+        want = {**{k: BF16_STEPS for k in STAGE1_KERNELS},
+                "seg_max_fwd": fx["batch"]}
+        check(got == want, f"bf16 parity {name}: launches {got}, want "
+              f"{want} (K1-K4 once a step, K5 once a pseudo-labelled "
+              "image)")
+        launches += Counter(got)
+        t1 = time.perf_counter()
+        runs["cpu_f32"] = bf16_port_outputs(name, variables, inputs, "cpu")
+        runs["cpu_autocast"] = bf16_port_outputs(name, variables, inputs,
+                                                 "cpu", cpu_autocast=True)
+        cpu_s = time.perf_counter() - t1
+        rows, outside = bf16_compare(name, ref[name], runs,
+                                     inputs[0][0]["labels"])
+        for key, r in rows.items():
+            print(f"bf16 parity {name} {key}: {r}", flush=True)
+        bad += outside["card"]
+        control = bf16_control_outside(outside["cpu_f32"])
+        print(f"bf16 parity {name}: the float32 control falls outside on "
+              f"{control}", flush=True)
+        if not control:
+            bad.append(f"{name}: the CPU's float32 run holds every eval "
+                       "output, so the check cannot tell a bf16 path from "
+                       "a float32 one")
+        line[name] = {"outputs": rows, "card_s": card_s, "cpu_s": cpu_s,
+                      "control": control}
+    wall_s = time.perf_counter() - t0
+    print(f"bf16 parity: {wall_s:.1f} s on {smi}", flush=True)
+    check(not bad, f"bf16 parity: outside the tolerances: {bad}")
+    return {"bf16_parity": {"card": smi, "fixtures": line,
+                            "wall_s": wall_s}}, dict(launches)
 
 
 def recipe_commands(script, workdir, data_root):
@@ -5107,6 +5754,10 @@ def main():
     # the round loop's 5 free-running rounds on the card against the CPU
     with tempfile.TemporaryDirectory() as tmp:
         rp_line, rp_launches = round_parity_slice(dev, smi, tmp)
+    # the bf16 path against the JAX package's dtype=bfloat16 model, from
+    # the reference file
+    torch.cuda.empty_cache()
+    bf16_line, bf16_launches = bf16_parity_slice(dev, smi)
     # data parallelism: a group of one rank under NCCL, then two ranks
     # sharing the card under gloo (NCCL refuses two ranks on one card),
     # each on cuda:<this card> explicitly
@@ -5180,7 +5831,7 @@ def main():
                "criteria": crit_launches, "loader_arms": arms_launches,
                "evals": evals_launches, "dp": dp_launches,
                "dp_criteria": dpc_launches, "profile": prof_launches,
-               "round_parity": rp_launches}
+               "round_parity": rp_launches, "bf16_parity": bf16_launches}
     launches = sum((Counter(n) for n in by_path.values()), Counter())
     check(all(launches[name] > 0 for name in KERNELS),
           f"a kernel was never launched on a main path: {dict(launches)}")
@@ -5189,7 +5840,7 @@ def main():
     compact = {"separators": (",", ":")}
     for line in (zoo_line, crit_line, cli_line, arms_line, voc_line,
                  evals_line, dp_line, dpc_line, prof_line, rp_line,
-                 eval_stats):
+                 bf16_line, eval_stats):
         print(json.dumps(line, **compact))
     print(json.dumps({
         "slice": "cityscapes stage-1 train step", "card": smi,

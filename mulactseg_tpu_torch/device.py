@@ -28,6 +28,12 @@ def set_numerics() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def bf16_autocast(dev: torch.device, cfg) -> bool:
+    """Whether a forward on `dev` runs under bfloat16 autocast for cfg: on
+    the card when cfg.dtype == "bfloat16"; the CPU computes in float32."""
+    return dev.type == "cuda" and cfg.dtype == "bfloat16"
+
+
 def resolve_device(device="cuda") -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda":

@@ -43,7 +43,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from mulactseg_tpu_torch.device import resolve_device
+from mulactseg_tpu_torch.device import bf16_autocast, resolve_device
 from mulactseg_tpu_torch.engine.evaluate import (
     eval_forward,
     require_batch_split,
@@ -112,7 +112,7 @@ class AnalysisEvaluator:
         self.method = method
         self.opts = ANALYSIS_METHODS[method]
         self.dev = resolve_device(device)
-        self.autocast = self.dev.type == "cuda" and cfg.dtype == "bfloat16"
+        self.autocast = bf16_autocast(self.dev, cfg)
         self.gen = (PseudoLabelGenerator(model, cfg, self.opts["plbl"],
                                          device=self.dev)
                     if "plbl" in self.opts else None)
@@ -259,7 +259,7 @@ class SelectionAccuracyEvaluator:
         self.model = model
         self.cfg = cfg
         self.dev = resolve_device(device)
-        self.autocast = self.dev.type == "cuda" and cfg.dtype == "bfloat16"
+        self.autocast = bf16_autocast(self.dev, cfg)
 
     def run(self, model_state, loader: Iterable, *, selection_iter: int = 0,
             logger=None) -> Dict:

@@ -27,7 +27,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from mulactseg_tpu_torch.device import resolve_device
+from mulactseg_tpu_torch.device import bf16_autocast, resolve_device
 from mulactseg_tpu_torch.engine.train import _device_normalize
 from mulactseg_tpu_torch.parallel import mesh
 from mulactseg_tpu_torch.utils.metrics import IoUIgnore, MeanIoU
@@ -60,7 +60,7 @@ class Evaluator:
         self.model = model
         self.cfg = cfg
         self.dev = resolve_device(device)
-        self.autocast = self.dev.type == "cuda" and cfg.dtype == "bfloat16"
+        self.autocast = bf16_autocast(self.dev, cfg)
         self.sliding = None
         self.confusion = None
         if cfg.sliding_eval:

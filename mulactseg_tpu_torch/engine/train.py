@@ -35,7 +35,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from mulactseg_tpu_torch.data.constants import IMAGENET_MEAN, IMAGENET_STD
-from mulactseg_tpu_torch.device import resolve_device
+from mulactseg_tpu_torch.device import bf16_autocast, resolve_device
 from mulactseg_tpu_torch.engine.state import make_optimizer, set_lr
 from mulactseg_tpu_torch.losses.fused import lossdecomp_fused
 from mulactseg_tpu_torch.losses.hier import (
@@ -587,7 +587,7 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
-    autocast = dev.type == "cuda" and cfg.dtype == "bfloat16"
+    autocast = bf16_autocast(dev, cfg)
     sampler = (torch.Generator(dev).manual_seed(cfg.seed + 1) if needs_rng
                else None)
 
@@ -652,7 +652,7 @@ def make_eval_step(model: torch.nn.Module, cfg, device="cuda"):
     from mulactseg_tpu_torch.engine.evaluate import eval_forward
 
     dev = resolve_device(device)
-    autocast = dev.type == "cuda" and cfg.dtype == "bfloat16"
+    autocast = bf16_autocast(dev, cfg)
 
     def predict(images):
         return eval_forward(model, images, dev, autocast)

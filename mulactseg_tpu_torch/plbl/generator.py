@@ -48,7 +48,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from mulactseg_tpu_torch.device import resolve_device
+from mulactseg_tpu_torch.device import bf16_autocast, resolve_device
 from mulactseg_tpu_torch.engine.evaluate import eval_forward
 from mulactseg_tpu_torch.engine.tta import tta_feat_forward
 from mulactseg_tpu_torch.parallel import mesh
@@ -154,7 +154,7 @@ class PseudoLabelGenerator:
         self.use_tta = use_tta
         self.max_protos = max_protos
         self.dev = resolve_device(device)
-        self.autocast = self.dev.type == "cuda" and cfg.dtype == "bfloat16"
+        self.autocast = bf16_autocast(self.dev, cfg)
         self.sliding = None
         if plbl_type.endswith("_slide"):
             from mulactseg_tpu_torch.engine.sliding import SlidingEval

@@ -18,9 +18,11 @@ CPU autocast's op lists are not CUDA's (on the CPU, for example, fewer
 ops run in bf16), so these tests check the port's casts against the
 reference's (the conv stack in bf16, FastBatchNorm's float32 statistics
 of bf16 activations and its bf16 affine, the float32 cosine head), not
-the card's exact kernel choices. The engine's CUDA-only autocast switch
-(engine/train.py) is left as it is: the tests call the model under CPU
-autocast themselves.
+the card's exact kernel choices; chip_smoke.py's bf16_parity phase holds
+those against the JAX package through tests/data/bf16_reference.npz
+(tests/test_torch_port_bf16_reference.py). The engine's CUDA-only
+autocast switch (device.bf16_autocast) is left as it is: the tests call
+the model under CPU autocast themselves.
 
 Tolerances are bf16's: one bf16 ulp is 2**-8 relative (0.0039 at 1.0),
 and bf16 rounding alone moves the reference's own outputs far more than

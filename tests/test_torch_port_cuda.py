@@ -1228,3 +1228,32 @@ def test_criteria_data_parallel_two_ranks_on_one_card(dev):
         assert g @ w / (np.linalg.norm(g) * np.linalg.norm(w)) >= 0.99, m
         assert abs(np.linalg.norm(g) - np.linalg.norm(w)) <= \
             1e-2 * np.linalg.norm(w), m
+
+
+@pytest.mark.parametrize("name", ["full", "twin"])
+def test_bf16_path_holds_the_jax_reference(dev, name):
+    """The port's bf16 path on the card, through its entry points, against
+    the JAX package's dtype=bfloat16 model as tests/data/
+    bf16_reference.npz holds it (chip_smoke.py's bf16_parity phase, one
+    fixture): the weights rebuilt from seeds match the file's digest, each
+    float output lies within chip_smoke.BF16_TOL (twice the JAX package's
+    own spread under one bf16 ulp on 1% of its input pixels; the stage
+    outputs by the share of values that differ bitwise), each exact
+    output equals the file's outside the pixels or regions that flip
+    under the JAX package's own perturbations; K1-K4 once a step, K5 once
+    a pseudo-labelled image."""
+    import chip_smoke as cs
+
+    ref = cs.bf16_reference()[name]
+    variables = cs.bf16_variables(name)
+    assert cs.variables_digest(variables) == str(ref["digest"])
+    inputs = cs.bf16_inputs(name)
+    _build.reset_launches()
+    out = cs.bf16_port_outputs(name, variables, inputs, dev)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {
+        **{k: cs.BF16_STEPS for k in cs.STAGE1_KERNELS},
+        "seg_max_fwd": cs.BF16_FIXTURES[name]["batch"]}
+    _, bad = cs.bf16_compare(name, ref, {"card": out},
+                             inputs[0][0]["labels"])
+    assert not bad["card"], bad
