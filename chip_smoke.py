@@ -139,36 +139,57 @@
    Its line: the fixture, per round the Jaccard, regions, step-0 gap and
    both eval mIoUs, the pixels that differ at synced weights and against
    the CPU's own last checkpoint, the seconds.
-8i. The bf16 recipe path against the JAX package (bf16_parity), after
-   the round loop: tests/data/bf16_reference.npz, written on the CPU by
-   tools_dev/bf16_reference.py, holds the JAX package's dtype=bfloat16
-   path on the fixtures of BF16_FIXTURES (the recipe's model at full
-   width, batch 4, 96x96, nseg 24; the CPU tests' twin at batch 4, 64x64,
-   nseg 16), whose weights (bf16_variables, checked against the file's
-   digest) and inputs (bf16_inputs) come from seeds. On each, the port's
-   entry points with cfg.dtype "bfloat16" (bf16_port_outputs):
-   make_eval_step and the features' eval forward, a train-mode forward,
-   BF16_STEPS make_train_step steps (AdamW, poly), the recipe's
-   PseudoLabelGenerator.generate and the paper's selector on a pool of 4
-   images, on the card with every launch counter set to 0 just before
-   and read just after (K1-K4 once a step, K5 once a pseudo-labelled
-   image, nothing else), then on the CPU in float32 and under CPU
-   bfloat16 autocast. Each float output's distance (bf16_distance) on
-   the card must lie within BF16_TOL, twice the JAX package's own spread
-   under one bf16 ulp on 1% of its input pixels; the seven eval-mode
-   stage outputs are held by the share of their values that differ
-   bitwise, so a stage whose casts are not the JAX package's fails; the
-   step by its gradient, the norms per leaf of the gradient and of the
-   update, and the change of the BN statistics, which a step that does
-   nothing misses by 100%; each exact
-   output (the predignore argmax map and its confusion matrix, the
-   pseudo-labels, the selected regions) must equal the file's outside
-   the pixels or regions that flip under its perturbations. The CPU's
-   float32 run is the control: it must fall outside on an eval output,
-   or the check could not tell a bf16 path from a float32 one. Every
-   distance prints beside its tolerance and the CPU's two. Its line:
-   per fixture and output the three distances and the tolerance, the
-   seconds on the card and on the CPU.
+8i. The bf16 recipe paths against the JAX package (bf16_parity), after
+   the round loop: tests/data/bf16_reference.npz and
+   bf16_reference_voc.npz (BF16_FILES), written on the CPU by
+   tools_dev/bf16_reference.py, hold the JAX package's dtype=bfloat16
+   path on the fixtures of BF16_FIXTURES (the Cityscapes recipe's model
+   at full width, batch 4, 96x96, nseg 24; the CPU tests' twin at batch
+   4, 64x64, nseg 16; the VOC recipe's model at full width, 21 outputs,
+   batch 4, 97x97, so that K1-K5 take the instances VOC's 513x513 takes),
+   whose weights (bf16_variables, checked against the file's digest) and
+   inputs (bf16_inputs) come from seeds. On each, the port's entry points
+   with cfg.dtype "bfloat16" (bf16_port_outputs): make_eval_step and the
+   features' eval forward, a train-mode forward, BF16_STEPS
+   make_train_step steps (AdamW, poly), the recipe's
+   PseudoLabelGenerator.generate (for VOC the 10-view TTA one, with each
+   view's stem and decoder outputs of the first image) and the recipe's
+   selector on a pool of 4 images, for VOC stage 2's step 0 (CE on the
+   reference's pseudo-labels), on the card with every launch counter set
+   to 0 just before and read just after (K1-K4 once a step, K5 once a
+   pseudo-labelled image, nothing else) and each kernel's instance
+   recorded (kernel_instances: for VOC K1-K5 at C = 21 at run time, no
+   16-byte path), then on the CPU in float32 and under CPU bfloat16
+   autocast. Each float output's distance (bf16_distance) on the card
+   must lie within BF16_TOL, twice the JAX package's own spread under
+   one bf16 ulp on 1% of its input pixels; the seven eval-mode stage
+   outputs (and the TTA views') are held by the share of their values
+   that differ bitwise, so a stage whose casts are not the JAX package's
+   fails; the step by its gradient, the norms per leaf of the gradient
+   and of the update, and the change of the BN statistics, which a step
+   that does nothing misses by 100%; each exact output (the argmax map
+   over the real classes and its confusion matrix, the pseudo-labels,
+   the selected regions) must equal the file's outside the pixels or
+   regions that flip under its perturbations. The CPU's float32 run is
+   the control: it must fall outside on an eval output, or the check
+   could not tell a bf16 path from a float32 one. Every distance prints
+   beside its tolerance and the CPU's two. Its line: per fixture and
+   output the three distances and the tolerance, the kernels' instances,
+   the seconds on the card and on the CPU.
+8j. The bf16 step at world 2 against the JAX package's 2-device step
+   (bf16_world2), after 8i: for each fixture whose recipe holds it (VOC,
+   whose batch of 12 is the job users spread over cards), two processes
+   sharing the card under gloo (each device cuda:<this card>) take the
+   port's make_train_step on half of the first batch each, from the
+   seeded weights, in bf16 (bf16_world2_rank). The step-0 gradient summed
+   over the ranks (the same on both) must lie within the fixture's grad0
+   and grad0_norm tolerances of the reference's 'world2/' entries (the
+   JAX package's step on a 2-device mesh of host devices), the loss and
+   its parts within loss0's; K1-K4 once on each rank, counted from 0 on
+   each rank. The card's world 2 against its own world 1 (8i's card
+   run) and the JAX package's 2 devices against 1 print beside it,
+   reported, not held. Its line: per fixture the distances and
+   tolerances, the loss, the ranks' seconds.
 8f. Data parallelism (dp; mulactseg_tpu_torch/parallel/mesh.py), the
    recipe model at the stage-1 shape from the seeded weights, global
    batch 4, bf16. (a) World 1: a group of one rank under NCCL
@@ -377,7 +398,8 @@ numbers (the zoo and criteria lines, items 8.1-8.2; the cli_recipe line,
 item 8b; the loader_arms line, item 8d; the voc_recipe line, item 8c;
 the evals line, item 8e; the dp line, item 8f; the dp_criteria line,
 item 8g; the profile_phase line, item 14; the round_parity line, item
-8h; the bf16_parity line, item 8i; evaluation;
+8h; the bf16_parity line, item 8i; the bf16_world2 line, item 8j;
+evaluation;
 stage 1 at both nseg; plbl; the al_rounds line: per round the selection
 seconds, train img/s, validations, eval mIoU, checkpoint save and load
 seconds; then plbl img/s, stage-2 img/s and mIoU, peak memory and the
@@ -496,17 +518,50 @@ RP_CLASSES, RP_SEED, RP_ROUNDS = 7, 0, 5
 RP_PLBL_TIES, RP_TIE_MARGIN = 2e-2, 1e-5
 RP_FIXTURE = dict(hh=64, nseg=16, pool=6, val=3, budget=24, batch=4,
                   steps=8, lr=3e-3, val_period=4)
-# the bf16 recipe path against the JAX package's dtype=bfloat16 model
-# (bf16_parity): the reference tools_dev/bf16_reference.py writes, and two
-# fixtures: the recipe's model at full width and rp_model's twin, each at
-# batch `batch`, hw x hw, nseg superpixels, `classes` outputs, a selector
-# pool of `pool` images and `budget` clicks, weights and inputs from `seed`
+# the bf16 recipe paths against the JAX package's dtype=bfloat16 model
+# (bf16_parity, bf16_world2): the references tools_dev/bf16_reference.py
+# writes, and three fixtures: the Cityscapes recipe's model at full width,
+# rp_model's twin, and the VOC recipe's model at full width at an odd size
+# (97 x 97, so the kernels take the instances VOC's 513 x 513 takes), each
+# at batch `batch`, hw x hw, nseg superpixels, `classes` outputs, a
+# selector pool of `pool` images and `budget` clicks, weights and inputs
+# from `seed`, and the recipe of BF16_RECIPES
 BF16_REFERENCE = HERE / "tests" / "data" / "bf16_reference.npz"
+BF16_REFERENCE_VOC = HERE / "tests" / "data" / "bf16_reference_voc.npz"
 BF16_FIXTURES = {
     "full": dict(batch=4, hw=96, nseg=24, classes=NUM_CLASSES, pool=4,
-                 budget=24, seed=0),
+                 budget=24, seed=0, recipe="cityscapes"),
     "twin": dict(batch=4, hw=64, nseg=16, classes=RP_CLASSES, pool=4,
-                 budget=16, seed=1)}
+                 budget=16, seed=1, recipe="cityscapes"),
+    "voc": dict(batch=4, hw=97, nseg=48, classes=21, pool=4, budget=24,
+                seed=2, recipe="voc")}
+BF16_FILES = {"full": BF16_REFERENCE, "twin": BF16_REFERENCE,
+              "voc": BF16_REFERENCE_VOC}
+# each recipe's Config keys (its criterion; for VOC the script's selector,
+# flags and learning rate, scripts/open_source/train_voc_mul_res50.sh:
+# 16-51), its pseudo-labeller's method and whether that runs the 10-view
+# TTA, whether the model has the predignore class, stage 2's Config keys
+# (lines 80-113: CE on the pseudo-labels), None where stage 2 is not
+# held, and whether the step is held at world 2 (the batch of 12 is the
+# job users spread over cards)
+BF16_RECIPES = {
+    "cityscapes": dict(
+        config=dict(method="active_joint_multi_predignore_lossdecomp"),
+        plbl_method="eval_save_cosplbl_prop_includeonehot", tta=False,
+        predignore=True, stage2=None, world2=False),
+    "voc": dict(
+        config=dict(dataset="voc", train_lr=1e-5,
+                    method="active_joint_multi_lossdecomp",
+                    active_method="my_bvsb_predclsbal_pwr",
+                    cls_weight_coeff=12.0, fair_counting=True,
+                    or_labeling=True),
+        plbl_method="eval_save_cosplbl_prop_includeonehot_voc_ms", tta=True,
+        predignore=False,
+        stage2=dict(method="active", stage2=True, dominant_labeling=True,
+                    cls_lr_scale=10.0), world2=True)}
+# the stages of the TTA forward's views that the reference keeps, of the
+# first pseudo-labelled image
+BF16_TTA_STAGES = ("stem", "decoder")
 # BF16_STEPS train steps; the reference keeps the float maps at a seeded
 # sample of BF16_LOGIT_PIXELS (logits) and BF16_FEAT_PIXELS (features),
 # each stage output at BF16_STAGE_VALUES values and the step-0 gradient
@@ -516,9 +571,15 @@ BF16_STAGE_VALUES, BF16_GRAD_VALUES = 4096, 65536
 # the last BN of each residual block at this share of its scale: at full
 # scale the JAX package's own bf16 train step is chaotic at random weights
 # (one bf16 ulp on 1% of the pixels moves its step-0 gradient by 85-100%
-# at batches 4-16, 64-128 px), at a tenth by 34-40% (PERF.md, PR 18)
+# at batches 4-16, 64-128 px), at a tenth by 34-40%; the VOC fixture at
+# nseg 24 stayed chaotic at a tenth for 4 of 4 seeds, at nseg 48 it moves
+# by 35% (PERF.md, the searches; tools_dev/bf16_reference.py --search)
 BF16_RESIDUAL_SCALE = 0.1
 BF16_PARTS = ("ce_loss", "mc_loss", "group_loss", "train_loss")
+# the parts of bf16_port_outputs: eval step and stages; train-mode forward
+# and the steps; pseudo-labels (with the TTA views' stages); selection;
+# stage 2's step 0 (the recipes that hold it)
+BF16_OUTPUT_PARTS = ("eval", "train", "plbl", "select", "stage2")
 # the stages whose eval and train-mode outputs place a gap
 BF16_STAGE_MODULES = {
     "stem": "backbone.maxpool", "layer1": "backbone.layer1",
@@ -555,7 +616,29 @@ BF16_TOL = {
              "stage_train/aspp": 0.072, "stage_train/decoder": 0.11,
              "train_logits": 0.058, "bn_delta": 0.017, "loss0": 0.022,
              "losses": 0.023, "grad0": 0.86, "grad0_norm": 0.15,
-             "update_norm": 0.025, "scores": 0.0018}}
+             "update_norm": 0.025, "scores": 0.0018},
+    "voc": {"eval_logits": 0.0035, "eval_feat": 0.006,
+            "stage_eval/aspp": 0.76, "stage_eval/decoder": 0.72,
+            "stage_eval/layer1": 0.71, "stage_eval/layer2": 0.9,
+            "stage_eval/layer3": 1.0, "stage_eval/layer4": 0.89,
+            "stage_eval/stem": 0.3, "stage_train/aspp": 0.11,
+            "stage_train/decoder": 0.15, "stage_train/layer1": 0.036,
+            "stage_train/layer2": 0.061, "stage_train/layer3": 0.054,
+            "stage_train/layer4": 0.094, "stage_train/stem": 0.021,
+            "train_logits": 0.038, "bn_delta": 0.011, "loss0": 0.0038,
+            "losses": 0.014, "grad0": 0.68, "grad0_norm": 0.074,
+            "update_norm": 0.042, "stage_tta/0.5/stem": 0.36,
+            "stage_tta/0.5/decoder": 0.77, "stage_tta/0.75/stem": 0.32,
+            "stage_tta/0.75/decoder": 0.76, "stage_tta/1.0/stem": 0.28,
+            "stage_tta/1.0/decoder": 0.76, "stage_tta/1.25/stem": 0.24,
+            "stage_tta/1.25/decoder": 0.73, "stage_tta/1.5/stem": 0.22,
+            "stage_tta/1.5/decoder": 0.74, "stage_tta/0.5f/stem": 0.33,
+            "stage_tta/0.5f/decoder": 0.74, "stage_tta/0.75f/stem": 0.33,
+            "stage_tta/0.75f/decoder": 0.74, "stage_tta/1.0f/stem": 0.27,
+            "stage_tta/1.0f/decoder": 0.74, "stage_tta/1.25f/stem": 0.24,
+            "stage_tta/1.25f/decoder": 0.75, "stage_tta/1.5f/stem": 0.2,
+            "stage_tta/1.5f/decoder": 0.75, "scores": 0.018,
+            "s2_loss0": 0.0016, "s2_grad0_norm": 0.061}}
 # the __global__ kernels of csrc/ that each launch counter's wrapper
 # launches, one of each a count
 COUNTER_KERNELS = {"pixel_ce_fwd": ("pixel_ce_fwd_kernel",),
@@ -3078,15 +3161,38 @@ def variables_digest(variables):
     return h.hexdigest()
 
 
-def bf16_config_kw(name):
+def bf16_recipe(name):
+    """The fixture's entry of BF16_RECIPES."""
+    return BF16_RECIPES[BF16_FIXTURES[name]["recipe"]]
+
+
+def bf16_num_classes(name):
+    """The fixture's real classes: its outputs less the predignore class
+    where the recipe's model has one."""
+    return BF16_FIXTURES[name]["classes"] - bf16_recipe(name)["predignore"]
+
+
+def bf16_config_kw(name, stage=None):
     """The fixture's configuration as keywords both packages' Config take:
-    the recipe's model, criterion and optimizer (AdamW, poly), bf16."""
+    the recipe's model, criterion and optimizer (AdamW, poly), bf16;
+    stage "plbl" or "stage2" for its pseudo-labeller's or stage 2's."""
     fx = BF16_FIXTURES[name]
-    return dict(num_classes=fx["classes"] - 1, nseg=fx["nseg"],
-                crop_size=(fx["hw"], fx["hw"]), train_batch_size=fx["batch"],
-                val_batch_size=2, num_workers=0, val_num_workers=0,
-                dtype="bfloat16", separable_conv=True, n_devices=1,
-                method="active_joint_multi_predignore_lossdecomp")
+    recipe = bf16_recipe(name)
+    kw = dict(num_classes=bf16_num_classes(name), nseg=fx["nseg"],
+              crop_size=(fx["hw"], fx["hw"]), train_batch_size=fx["batch"],
+              val_batch_size=2, num_workers=0, val_num_workers=0,
+              dtype="bfloat16", separable_conv=True, n_devices=1,
+              **recipe["config"])
+    if stage == "plbl":
+        kw["method"] = recipe["plbl_method"]
+    elif stage == "stage2":
+        kw.update(recipe["stage2"])
+    return kw
+
+
+def bf16_reference_of(name):
+    """The fixture's entry of its reference file (BF16_FILES)."""
+    return bf16_reference(BF16_FILES[name])[name]
 
 
 def bf16_model(name, variables=None, device="cpu"):
@@ -3138,12 +3244,15 @@ def bf16_variables(name):
 def bf16_inputs(name):
     """The fixture's inputs, numpy from its seed + 2: BF16_STEPS train
     batches (images (B, 3, H, W) float32 at per-image scales and offsets;
-    labels, a ground truth of 3 x 3 cells of C - 1 classes or ignore;
-    irregular superpixels; target, the multi-hot of the labels in each
-    superpixel, (B, S, C); spmask over a 60% selection, with its ids in
-    'selected'; target_bits), the first of which the eval, the train-mode
-    forward and the pseudo-labeller read; and the selector's pool: uint8
-    (N, H, W, 3) images, their ground truth and one superpixel map."""
+    labels, a ground truth of 3 x 3 cells of the n real classes or
+    ignore; irregular superpixels; target, the multi-hot of the labels in
+    each superpixel, (B, S, C), whose last channel is ignore's where the
+    model has the predignore class (C = n + 1) and is dropped where it has
+    not (C = n, as VOC's loader drops it); spmask over a 60% selection,
+    with its ids in 'selected'; target_bits), the first of which the eval,
+    the train-mode forward and the pseudo-labeller read; and the
+    selector's pool: uint8 (N, H, W, 3) images, their ground truth and one
+    superpixel map."""
     from mulactseg_tpu_torch.data.synthetic import (
         irregular_superpixels,
         multi_hot_from_gt,
@@ -3152,22 +3261,23 @@ def bf16_inputs(name):
 
     fx = BF16_FIXTURES[name]
     B, hw, S, C = fx["batch"], fx["hw"], fx["nseg"], fx["classes"]
+    n = bf16_num_classes(name)
     rng = np.random.RandomState(fx["seed"] + 2)
 
-    def ground_truth(n):
-        # 3 x 3 cells of a class each, class C - 1 standing for ignore, so
+    def ground_truth(k):
+        # 3 x 3 cells of a class each, class n standing for ignore, so
         # that some superpixels hold one class (the CE term's pixels)
-        cells = rng.randint(0, C, (n, 3, 3))
+        cells = rng.randint(0, n + 1, (k, 3, 3))
         idx = np.arange(hw) * 3 // hw
         gt = cells[:, idx[:, None], idx[None, :]]
-        return np.where(gt == C - 1, 255, gt).astype(np.int32)
+        return np.where(gt == n, 255, gt).astype(np.int32)
 
     batches = []
     for _ in range(BF16_STEPS):
         spx = np.stack([irregular_superpixels(hw, hw, S, rng)
                         for _ in range(B)]).astype(np.int32)
         labels = ground_truth(B)
-        target = np.stack([multi_hot_from_gt(labels[b], spx[b], S, C - 1)
+        target = np.stack([multi_hot_from_gt(labels[b], spx[b], S, n)[:, :C]
                            for b in range(B)])
         sel = rng.rand(B, S) < 0.6
         spmask = np.take_along_axis(sel, spx.reshape(B, -1), 1).reshape(
@@ -3209,19 +3319,25 @@ def bf16_sample(name, key, x, n):
     return x[np.sort(rng.choice(x.size, n, replace=False))]
 
 
-def bf16_step_outputs(name, grads, before, after):
-    """The train step's outputs that the reference keeps, from either
-    package's trees in the JAX layout: the step-0 gradient at a sample of
-    BF16_GRAD_VALUES values of its leaves in sorted order, and its norm
-    per leaf; the norm per leaf of the parameters' update over the
-    steps."""
+def bf16_grad_outputs(name, grads):
+    """A step-0 gradient as the reference keeps it, from either package's
+    tree in the JAX layout: a sample of BF16_GRAD_VALUES values of its
+    leaves in sorted order, and its norm per leaf."""
     leaves = tree_leaves(grads)
     flat = np.concatenate([np.asarray(a, np.float32).reshape(-1)
                            for _, a in leaves])
-    before = dict(tree_leaves(before))
     return {"grad0": bf16_sample(name, "grad0", flat, BF16_GRAD_VALUES),
             "grad0_norm": {k: np.float64(np.linalg.norm(a))
-                           for k, a in leaves},
+                           for k, a in leaves}}
+
+
+def bf16_step_outputs(name, grads, before, after):
+    """The train step's outputs that the reference keeps, from either
+    package's trees in the JAX layout: the step-0 gradient
+    (bf16_grad_outputs); the norm per leaf of the parameters' update over
+    the steps."""
+    before = dict(tree_leaves(before))
+    return {**bf16_grad_outputs(name, grads),
             "update_norm": {k: np.float64(np.linalg.norm(
                 np.float64(a) - before[k])) for k, a in tree_leaves(after)}}
 
@@ -3233,15 +3349,18 @@ def bf16_pool_sets(cls, name, pool):
     from mulactseg_tpu_torch.data.synthetic import multi_hot_from_gt
 
     fx = BF16_FIXTURES[name]
+    n = bf16_num_classes(name)
     out = []
     for split in ("active-ulabel", "active-label"):
         ds = cls(n_images=fx["pool"], H=fx["hw"], W=fx["hw"],
-                 num_classes=fx["classes"] - 1, nseg=fx["nseg"], split=split)
+                 num_classes=n, nseg=fx["nseg"], split=split)
         ds.images = list(pool["images"])
         ds.gts = list(pool["labels"])
         ds.spx_map = pool["spx"]
+        # the training targets' channels (bf16_inputs): fair counting
+        # counts them
         ds.multi_hot_cls = np.stack([
-            multi_hot_from_gt(g, pool["spx"], fx["nseg"], fx["classes"] - 1)
+            multi_hot_from_gt(g, pool["spx"], fx["nseg"], n)[:, :fx["classes"]]
             for g in ds.gts])
         ds.isselected = np.zeros(ds.multi_hot_cls.shape[:-1], np.float32)
         ds.suppix = {k[2]: np.unique(pool["spx"]).tolist() for k in ds.im_idx}
@@ -3278,10 +3397,11 @@ def eval_confusion(pred, labels, n):
 
 def bf16_outputs_common(name, eval_logits, eval_feat, labels):
     """The eval outputs both packages derive alike: the logits and features
-    at the kept pixels (rows of (pixels, channels)), the predignore argmax
-    over the C - 1 real classes, and its confusion matrix."""
-    C = eval_logits.shape[1]
-    pred = eval_logits[:, :-1].argmax(1).astype(np.uint8)
+    at the kept pixels (rows of (pixels, channels)), the argmax over the n
+    real classes (predignore's where the model has that class), and its
+    confusion matrix."""
+    n = bf16_num_classes(name)
+    pred = eval_logits[:, :n].argmax(1).astype(np.uint8)
 
     def rows(x, n):
         return np.ascontiguousarray(x.transpose(0, 2, 3, 1).reshape(
@@ -3290,20 +3410,51 @@ def bf16_outputs_common(name, eval_logits, eval_feat, labels):
     return {"eval_logits": rows(eval_logits, BF16_LOGIT_PIXELS),
             "eval_feat": rows(eval_feat, BF16_FEAT_PIXELS),
             "eval_pred": pred,
-            "eval_confusion": eval_confusion(pred, labels, C - 1)}
+            "eval_confusion": eval_confusion(pred, labels, n)}
 
 
-def bf16_port_outputs(name, variables, inputs, device, cpu_autocast=False):
+def bf16_tta_views():
+    """The TTA forward's views: 2 x len(TTA_SCALES), read at call time."""
+    from mulactseg_tpu_torch.engine.tta import TTA_SCALES
+
+    return 2 * len(TTA_SCALES)
+
+
+def bf16_tta_key(i, stage):
+    """The reference's key of a stage output of the TTA forward's view i
+    (engine/tta.py's order: the scales unflipped, then flipped), e.g.
+    'stage_tta/1.25f/stem'."""
+    from mulactseg_tpu_torch.engine.tta import TTA_SCALES
+
+    flip, k = divmod(i, len(TTA_SCALES))
+    return f"stage_tta/{TTA_SCALES[k]}{'f' if flip else ''}/{stage}"
+
+
+def bf16_stage2_outputs(loss, grads):
+    """Stage 2's step-0 outputs that the reference keeps, from either
+    package's gradient tree in the JAX layout: the loss and the norm per
+    leaf."""
+    return {"s2_loss0": np.array([loss]),
+            "s2_grad0_norm": {k: np.float64(np.linalg.norm(np.asarray(
+                a, np.float32))) for k, a in tree_leaves(grads)}}
+
+
+def bf16_port_outputs(name, variables, inputs, device, cpu_autocast=False,
+                      parts=BF16_OUTPUT_PARTS, s2_labels=None):
     """The port's bf16 path on `device` through its entry points, from the
-    fixture's weights: make_eval_step and eval_forward (features), a
-    train-mode forward (logits, BN statistics), BF16_STEPS make_train_step
-    steps (the step-0 loss and parts, the step-0 gradient, each step's
-    loss, the update of the parameters), PseudoLabelGenerator.generate
-    (the recipe's type; its PNGs read back) and the paper's selector
-    (scores and selected regions); for the twin each stage's output in
-    eval and train mode. cpu_autocast runs the CPU under bfloat16
-    autocast where the card would. Returns {key: array, or {leaf path:
-    array}}, as the reference stores them."""
+    fixture's weights, in the parts of BF16_OUTPUT_PARTS asked for: "eval",
+    make_eval_step and eval_forward (features) with each stage's output;
+    "train", a train-mode forward (logits, BN statistics, each stage's
+    output) and BF16_STEPS make_train_step steps (the step-0 loss and
+    parts, the step-0 gradient, each step's loss, the update of the
+    parameters); "plbl", the recipe's PseudoLabelGenerator.generate (its
+    PNGs read back), with TTA also the BF16_TTA_STAGES outputs of the
+    first image's views; "select", the recipe's selector (scores and
+    selected regions); "stage2", where the recipe holds it, stage 2's
+    make_train_step at step 0 on s2_labels (the reference's pseudo-labels;
+    by default this run's), its loss and gradient. cpu_autocast runs the
+    CPU under bfloat16 autocast where the card would. Returns {key:
+    array, or {leaf path: array}}, as the reference stores them."""
     from types import SimpleNamespace
 
     from mulactseg_tpu_torch import device as port_device
@@ -3319,10 +3470,12 @@ def bf16_port_outputs(name, variables, inputs, device, cpu_autocast=False):
 
     dev = torch.device(device)
     cfg = Config(**bf16_config_kw(name))
+    recipe = bf16_recipe(name)
     batches, pool = inputs
     b0 = batches[0]
     model = bf16_model(name, variables, dev)
     autocast = cpu_autocast or port_device.bf16_autocast(dev, cfg)
+    out = {}
     with contextlib.ExitStack() as stack:
         if cpu_autocast:
             for mod in (port_train, port_generator):
@@ -3339,55 +3492,89 @@ def bf16_port_outputs(name, variables, inputs, device, cpu_autocast=False):
                 BF16_STAGE_VALUES) for k, v in stages.items()}
 
         predict = port_train.make_eval_step(model, cfg, device=dev)
-        logits = predict(b0["images"]).cpu().numpy()
-        out = stage_outputs("eval")
-        feat, _ = eval_forward(model, b0["images"], dev, autocast,
-                               return_feat=True)
-        out.update(bf16_outputs_common(
-            name, logits, feat.float().cpu().numpy(), b0["labels"]))
-        model.train()
-        with torch.no_grad(), torch.autocast(dev.type, dtype=torch.bfloat16,
-                                             enabled=autocast):
-            train_logits = model(torch.as_tensor(b0["images"]).to(dev))
-        out.update(stage_outputs("train"))
+        if "eval" in parts:
+            logits = predict(b0["images"]).cpu().numpy()
+            out.update(stage_outputs("eval"))
+            feat, _ = eval_forward(model, b0["images"], dev, autocast,
+                                   return_feat=True)
+            out.update(bf16_outputs_common(
+                name, logits, feat.float().cpu().numpy(), b0["labels"]))
+        if "train" in parts:
+            model.train()
+            with torch.no_grad(), torch.autocast(
+                    dev.type, dtype=torch.bfloat16, enabled=autocast):
+                train_logits = model(torch.as_tensor(b0["images"]).to(dev))
+            out.update(stage_outputs("train"))
         for h in hooks:
             h.remove()
-        out["train_logits"] = np.ascontiguousarray(
-            train_logits.cpu().numpy().transpose(0, 2, 3, 1).reshape(
-                -1, train_logits.shape[1])[bf16_pixels(name,
-                                                       BF16_LOGIT_PIXELS)])
-        stats = dict(tree_leaves(variables["batch_stats"]))
-        out["bn_delta"] = {k: a - stats[k] for k, a in tree_leaves(
-            convert.state_dict_to_variables(model.state_dict())[
-                "batch_stats"])}
-        convert.load_variables(model, variables)
-        step = port_train.make_train_step(model, cfg, device=dev)
-        losses = []
-        for i, batch in enumerate(batches):
-            aux = step(batch)
-            if i == 0:
-                out["loss0"] = np.array([float(aux[k]) for k in BF16_PARTS])
-                grads = convert.state_dict_to_variables(
-                    {n: p.grad for n, p in model.named_parameters()})
-            losses.append(float(aux["train_loss"]))
-        out["losses"] = np.array(losses)
-        out.update(bf16_step_outputs(
-            name, grads, {"params": variables["params"]},
-            convert.state_dict_to_variables(dict(model.named_parameters()))))
-        convert.load_variables(model, variables)
-        items, suppix = bf16_plbl_items(b0)
-        pcfg = Config(**{**bf16_config_kw(name),
-                         "method": "eval_save_cosplbl_prop_includeonehot"})
-        gen = port_generator.PseudoLabelGenerator(
-            model, pcfg, "cosprop_includeonehot", device=dev)
-        with tempfile.TemporaryDirectory() as tmp:
-            gen.generate(None, items, save_dir=tmp, suppix=suppix)
-            out["plbl"] = np.stack([read_gray8(os.path.join(
-                tmp, f"lbl_{b}.png")) for b in range(len(items))])
-        out.update(bf16_selection(
-            name, get_selector("my_bvsb_predclsbal_pwr_banignore", cfg),
-            SimpleNamespace(predict_logits=predict), RegionActiveSet, cfg,
-            *bf16_pool_sets(SyntheticRegionDataset, name, pool)))
+        if "train" in parts:
+            out["train_logits"] = np.ascontiguousarray(
+                train_logits.cpu().numpy().transpose(0, 2, 3, 1).reshape(
+                    -1, train_logits.shape[1])[bf16_pixels(
+                        name, BF16_LOGIT_PIXELS)])
+            stats = dict(tree_leaves(variables["batch_stats"]))
+            out["bn_delta"] = {k: a - stats[k] for k, a in tree_leaves(
+                convert.state_dict_to_variables(model.state_dict())[
+                    "batch_stats"])}
+            convert.load_variables(model, variables)
+            step = port_train.make_train_step(model, cfg, device=dev)
+            losses = []
+            for i, batch in enumerate(batches):
+                aux = step(batch)
+                if i == 0:
+                    out["loss0"] = np.array([float(aux[k])
+                                             for k in BF16_PARTS])
+                    grads = convert.state_dict_to_variables(
+                        {n: p.grad for n, p in model.named_parameters()})
+                losses.append(float(aux["train_loss"]))
+            out["losses"] = np.array(losses)
+            out.update(bf16_step_outputs(
+                name, grads, {"params": variables["params"]},
+                convert.state_dict_to_variables(
+                    dict(model.named_parameters()))))
+            convert.load_variables(model, variables)
+        if "plbl" in parts:
+            items, suppix = bf16_plbl_items(b0)
+            gen = port_generator.PseudoLabelGenerator(
+                model, Config(**bf16_config_kw(name, "plbl")),
+                "cosprop_includeonehot", use_tta=recipe["tta"], device=dev)
+            # the first image's TTA views, by stage, in the forward's order
+            views = {stage: [] for stage in BF16_TTA_STAGES}
+            n_views = bf16_tta_views()
+
+            def keep(stage, out):
+                if len(views[stage]) < n_views:
+                    views[stage].append(out.float().cpu().numpy())
+
+            hooks = [model.get_submodule(BF16_STAGE_MODULES[stage])
+                     .register_forward_hook(
+                         lambda m, i, o, s=stage: keep(s, o))
+                     for stage in BF16_TTA_STAGES] if recipe["tta"] else []
+            with tempfile.TemporaryDirectory() as tmp:
+                gen.generate(None, items, save_dir=tmp, suppix=suppix)
+                out["plbl"] = np.stack([read_gray8(os.path.join(
+                    tmp, f"lbl_{b}.png")) for b in range(len(items))])
+            for h in hooks:
+                h.remove()
+            for stage, arrays in views.items():
+                for i, a in enumerate(arrays):
+                    key = bf16_tta_key(i, stage)
+                    out[key] = bf16_sample(name, key, a, BF16_STAGE_VALUES)
+        if "select" in parts:
+            out.update(bf16_selection(
+                name, get_selector(cfg.active_method, cfg),
+                SimpleNamespace(predict_logits=predict), RegionActiveSet,
+                cfg, *bf16_pool_sets(SyntheticRegionDataset, name, pool)))
+        if "stage2" in parts and recipe["stage2"]:
+            labels = out["plbl"] if s2_labels is None else s2_labels
+            step = port_train.make_train_step(
+                model, Config(**bf16_config_kw(name, "stage2")), device=dev)
+            aux = step({"images": b0["images"],
+                        "labels": np.asarray(labels, np.int32)})
+            out.update(bf16_stage2_outputs(
+                float(aux["train_loss"]), convert.state_dict_to_variables(
+                    {n: p.grad for n, p in model.named_parameters()})))
+            convert.load_variables(model, variables)
     return out
 
 
@@ -3430,8 +3617,11 @@ def bf16_reference(path=BF16_REFERENCE):
     on 1% of its input pixels, and under its weights scaled by 1 + 1e-3
     N(0, 1)), 'flips/<key>' (the pixels or regions of an exact output
     that flip under either), 'novel/<key>' (the most of those one
-    perturbed run flips alone) and 'plbl_margin' (each pseudo-label
-    pixel's decision margin, decision_margins)."""
+    perturbed run flips alone), 'plbl_margin' (each pseudo-label
+    pixel's decision margin, decision_margins) and, where the recipe
+    holds world 2, 'world2/<key>' (the JAX package's step on a 2-device
+    mesh: grad0, grad0_norm, loss0, and its cosine and rel_l2 to the
+    1-device gradient)."""
     ref = {}
     with np.load(path) as z:
         for k in z.files:
@@ -3447,28 +3637,30 @@ def bf16_reference(path=BF16_REFERENCE):
 
 def bf16_distance(key, got, want):
     """How far a float output lies from the reference's: the step losses
-    and parts relative to each; the step-0 gradient's sample, its norms
-    per leaf, the update's norms per leaf and the change of the BN
-    running statistics in relative L2 over every value (a zero gradient
-    or update, or statistics left as they were, lie at 1); an eval-mode
-    stage output by the share of its values that differ bitwise from the
+    and parts (stage 2's too) relative to each; the step-0 gradient's
+    sample, its norms per leaf (stage 2's too), the update's norms per
+    leaf and the change of the BN running statistics in relative L2 over
+    every value (a zero gradient or update, or statistics left as they
+    were, lie at 1); an eval-mode stage output (a TTA view's too) by the
+    share of its values that differ bitwise from the
     reference's (both are bf16 values where the casts agree); a
     train-mode one, whose values the rounding of the batch statistics
     moves, by the max abs error relative to its largest value; the rest
     (logits, features, scores) by the max abs error."""
-    if key in ("loss0", "losses"):
+    if key in ("loss0", "losses", "s2_loss0"):
         return float(np.max(np.abs(got - want) / np.abs(want)))
     if isinstance(want, dict):
         check(set(got) == set(want), f"{key}: leaves differ")
         got, want = (np.concatenate([np.asarray(t[k], np.float64).reshape(-1)
                                      for k in sorted(want)])
                      for t in (got, want))
-    if key.startswith("stage_eval/"):
+    if key.startswith(("stage_eval/", "stage_tta/")):
         return float(np.mean(np.asarray(got, np.float32)
                              != np.asarray(want, np.float32)))
     if key.startswith("stage_train/"):
         return float(np.abs(got - want).max() / np.abs(want).max())
-    if key in ("grad0", "grad0_norm", "update_norm", "bn_delta"):
+    if key in ("grad0", "grad0_norm", "update_norm", "bn_delta",
+               "s2_grad0_norm"):
         got, want = np.float64(got), np.float64(want)
         return float(np.linalg.norm(got - want) / np.linalg.norm(want))
     return float(np.abs(got - want).max())
@@ -3476,7 +3668,16 @@ def bf16_distance(key, got, want):
 
 # the eval outputs, on one of which the CPU's float32 run must fall
 # outside: the control that the check tells a bf16 path from float32
-BF16_EVAL_KEYS = ("eval_logits", "eval_feat", "scores", "stage_eval/")
+BF16_EVAL_KEYS = ("eval_logits", "eval_feat", "scores", "stage_eval/",
+                  "stage_tta/")
+
+
+def bf16_output_keys(ref):
+    """The keys of a fixture's reference entry that the port's outputs
+    (bf16_port_outputs with every part) hold."""
+    return {k for k in ref if k not in ("digest", "plbl_margin")
+            and not k.startswith(("spread_", "flips/", "novel/",
+                                  "world2/"))}
 
 
 def bf16_compare(name, ref, runs, labels):
@@ -3491,14 +3692,22 @@ def bf16_compare(name, ref, runs, labels):
     counted in another cell} (labels: the eval images' ground truth).
     An exact output holds where no more positions differ outside the
     flip set than "novel": as many as one more run of the reference's
-    own noise would add. Returns (rows, {run: the outputs that lie
-    outside})."""
+    own noise would add. Only the outputs every run holds are compared
+    (bf16_port_outputs' parts). Returns (rows, {run: the outputs that
+    lie outside})."""
     tols = BF16_TOL[name]
     rows, bad = {}, {run: [] for run in runs}
-    check(set(tols) == {k for k in ref if k in next(iter(runs.values()))}
-          - set(BF16_EXACT) - {"eval_confusion"},
+    check(set(tols) == bf16_output_keys(ref) - set(BF16_EXACT)
+          - {"eval_confusion"},
           f"{name}: the tolerances do not name every float output")
+    # the outputs the runs hold (bf16_port_outputs' parts)
+    held = set.intersection(*(set(out) for out in runs.values()))
+    check(held <= bf16_output_keys(ref),
+          f"{name}: outputs the reference lacks: "
+          f"{held - bf16_output_keys(ref)}")
     for key, tol in tols.items():
+        if key not in held:
+            continue
         rows[key] = {run: bf16_distance(key, out[key], ref[key])
                      for run, out in runs.items()}
         rows[key]["tol"] = tol
@@ -3506,6 +3715,8 @@ def bf16_compare(name, ref, runs, labels):
             if not rows[key][run] <= tol:
                 bad[run].append(f"{name} {key}: {rows[key][run]:.3g} > {tol}")
     for key in BF16_EXACT:
+        if key not in held:
+            continue
         flips, novel = ref[f"flips/{key}"], int(ref[f"novel/{key}"])
         rows[key] = {"flips": int(flips.sum()), "novel": novel}
         for run, out in runs.items():
@@ -3520,6 +3731,8 @@ def bf16_compare(name, ref, runs, labels):
                     f"{name} {key}: {rows[key][run][1]} positions differ "
                     f"outside the flip set, one run of the reference flips "
                     f"{novel} alone")
+    if "eval_pred" not in held:
+        return rows, bad
     # the confusion matrix outside the flip set: the pixels it counts in
     # another cell than the reference's
     keep = ~ref["flips/eval_pred"]
@@ -3543,26 +3756,74 @@ def bf16_control_outside(bad):
             if m.split(" ")[1].startswith(BF16_EVAL_KEYS)]
 
 
+@contextlib.contextmanager
+def kernel_instances():
+    """Records the instance each stage-1 kernel and K5 take on the card
+    while the block runs: {"pixel_ce": {(C, nc, 16-byte path)} for K1 and
+    K2 (pixel_loss.instance), "ssm": {(C, nc)} for K3 and K4 (whose
+    sources take C == 20 compiled, else C at run time, and have no
+    16-byte path), "seg_max_fwd": {(C, nc, load path)} for K5
+    (segment_max.layout)}; nc 0 is C at run time. CPU tensors take the
+    plain versions and record nothing."""
+    from mulactseg_tpu_torch.ops import pixel_loss, segment, segment_max
+
+    seen = {"pixel_ce": set(), "ssm": set(), "seg_max_fwd": set()}
+    nc = pixel_loss.compiled_classes
+    instance, layout = pixel_loss.instance, segment_max.layout
+    ssm_fwd, ssm_bwd = segment.ssm_fwd, segment.ssm_bwd
+
+    def rec_instance(xc, bits3):
+        got = instance(xc, bits3)
+        seen["pixel_ce"].add((xc.shape[1], *got))
+        return got
+
+    def rec_layout(values):
+        got = layout(values)
+        seen["seg_max_fwd"].add((values.shape[1], nc(values.shape[1]), got))
+        return got
+
+    def rec_fwd(xc, *args):
+        if xc.device.type == "cuda":
+            seen["ssm"].add((xc.shape[1], nc(xc.shape[1])))
+        return ssm_fwd(xc, *args)
+
+    def rec_bwd(xc, *args):
+        if xc.device.type == "cuda":
+            seen["ssm"].add((xc.shape[1], nc(xc.shape[1])))
+        return ssm_bwd(xc, *args)
+
+    with mock.patch.object(pixel_loss, "instance", rec_instance), \
+            mock.patch.object(segment_max, "layout", rec_layout), \
+            mock.patch.object(segment, "ssm_fwd", rec_fwd), \
+            mock.patch.object(segment, "ssm_bwd", rec_bwd):
+        yield seen
+
+
 def bf16_parity_slice(dev, smi):
     """The port's bf16 path on the card against the JAX package's
     dtype=bfloat16 model (docstring, item 8i): each fixture's outputs,
-    card, CPU float32 and CPU autocast, against BF16_REFERENCE. Returns
-    (its line, the path's launches)."""
-    from mulactseg_tpu_torch.ops import _build
+    card, CPU float32 and CPU autocast, against its reference file
+    (BF16_FILES). Returns (its line, the path's launches, the card's
+    outputs by fixture)."""
+    from mulactseg_tpu_torch.ops import _build, segment_max
 
     t0 = time.perf_counter()
-    ref = bf16_reference()
-    line, launches, bad = {}, Counter(), []
+    line, launches, bad, card = {}, Counter(), [], {}
     for name, fx in BF16_FIXTURES.items():
+        ref = bf16_reference_of(name)
         variables = bf16_variables(name)
-        check(variables_digest(variables) == str(ref[name]["digest"]),
+        check(variables_digest(variables) == str(ref["digest"]),
               f"bf16 parity {name}: the weights made from seeds are not "
               "the reference's")
         inputs = bf16_inputs(name)
+        # stage 2 trains on the reference's pseudo-labels
+        s2 = ref["plbl"] if bf16_recipe(name)["stage2"] else None
         t1 = time.perf_counter()
         _sync(dev)
         _build.reset_launches()
-        runs = {"card": bf16_port_outputs(name, variables, inputs, dev)}
+        with kernel_instances() as instances:
+            runs = {"card": bf16_port_outputs(name, variables, inputs, dev,
+                                              s2_labels=s2)}
         _sync(dev)
         card_s = time.perf_counter() - t1
         got = dict(_build.LAUNCHES)
@@ -3571,13 +3832,29 @@ def bf16_parity_slice(dev, smi):
         check(got == want, f"bf16 parity {name}: launches {got}, want "
               f"{want} (K1-K4 once a step, K5 once a pseudo-labelled "
               "image)")
+        check(set(runs["card"]) == bf16_output_keys(ref),
+              f"bf16 parity {name}: the card's outputs are not the "
+              "reference's")
         launches += Counter(got)
+        instances = {k: sorted(v) for k, v in instances.items()}
+        print(f"bf16 parity {name}: kernel instances (C, nc, path) "
+              f"{instances}", flush=True)
+        C = fx["classes"]
+        if C != 20 and (fx["hw"] ** 2) % 4:
+            # VOC's: C at run time, no 16-byte path (HW odd)
+            check(instances == {"pixel_ce": [(C, 0, False)],
+                                "ssm": [(C, 0)],
+                                "seg_max_fwd": [(C, 0, segment_max.ANY)]},
+                  f"bf16 parity {name}: kernel instances {instances}, "
+                  f"want C = {C} at run time without the 16-byte path")
+        card[name] = runs["card"]
         t1 = time.perf_counter()
-        runs["cpu_f32"] = bf16_port_outputs(name, variables, inputs, "cpu")
-        runs["cpu_autocast"] = bf16_port_outputs(name, variables, inputs,
-                                                 "cpu", cpu_autocast=True)
+        runs["cpu_f32"] = bf16_port_outputs(name, variables, inputs, "cpu",
+                                            s2_labels=s2)
+        runs["cpu_autocast"] = bf16_port_outputs(
+            name, variables, inputs, "cpu", cpu_autocast=True, s2_labels=s2)
         cpu_s = time.perf_counter() - t1
-        rows, outside = bf16_compare(name, ref[name], runs,
+        rows, outside = bf16_compare(name, ref, runs,
                                      inputs[0][0]["labels"])
         for key, r in rows.items():
             print(f"bf16 parity {name} {key}: {r}", flush=True)
@@ -3590,12 +3867,109 @@ def bf16_parity_slice(dev, smi):
                        "output, so the check cannot tell a bf16 path from "
                        "a float32 one")
         line[name] = {"outputs": rows, "card_s": card_s, "cpu_s": cpu_s,
-                      "control": control}
+                      "control": control, "instances": instances}
     wall_s = time.perf_counter() - t0
     print(f"bf16 parity: {wall_s:.1f} s on {smi}", flush=True)
     check(not bad, f"bf16 parity: outside the tolerances: {bad}")
-    return {"bf16_parity": {"card": smi, "fixtures": line,
-                            "wall_s": wall_s}}, dict(launches)
+    return ({"bf16_parity": {"card": smi, "fixtures": line,
+                             "wall_s": wall_s}}, dict(launches), card)
+
+
+def bf16_world2_rank(name, device, cpu_autocast=False):
+    """One rank of bf16_world2: the port's make_train_step, from the
+    fixture's seeded weights, on this rank's rows of its first batch, in
+    bf16 (on the CPU under CPU bfloat16 autocast with cpu_autocast).
+    Returns the step's loss and parts (the global batch's), the step-0
+    gradient summed over the ranks as the reference keeps one
+    (bf16_grad_outputs) and the launches of the step."""
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.engine import train as port_train
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.ops import _build
+    from mulactseg_tpu_torch.parallel import mesh
+
+    dev = torch.device(device)
+    variables = bf16_variables(name)
+    model = bf16_model(name, variables, dev)
+    b0 = bf16_inputs(name)[0][0]
+    rows = mesh.local_rows(len(b0["images"]))
+    batch = {k: v[rows] for k, v in b0.items() if isinstance(v, np.ndarray)}
+    with contextlib.ExitStack() as stack:
+        if cpu_autocast:
+            stack.enter_context(mock.patch.object(
+                port_train, "bf16_autocast", lambda d, c: True))
+        step = port_train.make_train_step(
+            model, Config(**bf16_config_kw(name)), device=dev)
+        _sync(dev)
+        _build.reset_launches()
+        aux = step(batch)
+        _sync(dev)
+        launches = dict(_build.LAUNCHES)
+    grads = convert.state_dict_to_variables(
+        {n: p.grad for n, p in model.named_parameters()})
+    return {"loss0": np.array([float(aux[k]) for k in BF16_PARTS]),
+            **bf16_grad_outputs(name, grads), "launches": launches}
+
+
+def bf16_world2_slice(dev, smi, card_world1=None, cpu_autocast=False):
+    """The port's bf16 step at world 2 against the JAX package's 2-device
+    step (docstring, item 8j): for each fixture whose recipe holds it,
+    two ranks sharing `dev` under gloo (each on dev explicitly), each on
+    half of the first batch, against the reference's 'world2/' entries:
+    the summed step-0 gradient's sample and its norms per leaf within
+    the fixture's grad0 and grad0_norm tolerances, the loss and its parts
+    within loss0's; K1-K4 once on each rank. card_world1: the card's
+    world-1 outputs by fixture (bf16_parity_slice's), against which world
+    2 is reported, not held. Returns (its line, the path's launches)."""
+    from mulactseg_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    line, launches, bad = {}, Counter(), []
+    for name in BF16_FIXTURES:
+        if not bf16_recipe(name)["world2"]:
+            continue
+        ref, tol = bf16_reference_of(name), BF16_TOL[name]
+        t1 = time.perf_counter()
+        ranks = mesh.spawn(bf16_world2_rank, 2, "gloo", str(dev), name,
+                           str(dev), cpu_autocast, timeout=600)
+        rank_s = time.perf_counter() - t1
+        for r, res in enumerate(ranks):
+            check(res["launches"] == {k: 1 for k in STAGE1_KERNELS},
+                  f"bf16 world 2 {name}: rank {r} launched "
+                  f"{res['launches']}, want K1-K4 once")
+            launches += Counter(res["launches"])
+        got = ranks[0]
+        if not np.array_equal(got["grad0"], ranks[1]["grad0"]):
+            bad.append(f"{name} world 2: the ranks hold different "
+                       "gradients")
+        rows = {}
+        for key, want, t in (("grad0", "world2/grad0", tol["grad0"]),
+                             ("grad0_norm", "world2/grad0_norm",
+                              tol["grad0_norm"]),
+                             ("loss0", "world2/loss0", tol["loss0"])):
+            d = bf16_distance(key, got[key], ref[want])
+            rows[key] = {"card": d, "tol": t}
+            if not d <= t:
+                bad.append(f"{name} world 2 {key}: {d:.3g} > {t}")
+        if card_world1 is not None:
+            # reported, not held: the card's world 2 against its world 1
+            w1 = card_world1[name]
+            rows["card_world1"] = {k: bf16_distance(k, got[k], w1[k])
+                                   for k in ("grad0", "grad0_norm")}
+            rows["card_world1"]["loss0"] = bf16_distance(
+                "loss0", got["loss0"], w1["loss0"])
+        rows["jax_world1"] = {"cosine": float(ref["world2/cosine"]),
+                              "rel_l2": float(ref["world2/rel_l2"])}
+        for key, r in rows.items():
+            print(f"bf16 world 2 {name} {key}: {r}", flush=True)
+        line[name] = {"outputs": rows, "ranks_s": rank_s,
+                      "loss0": got["loss0"].tolist()}
+    wall_s = time.perf_counter() - t0
+    print(f"bf16 world 2: {wall_s:.1f} s on {smi}", flush=True)
+    check(line, "bf16 world 2: no fixture holds the step at world 2")
+    check(not bad, f"bf16 world 2: outside the tolerances: {bad}")
+    return ({"bf16_world2": {"card": smi, "fixtures": line,
+                             "wall_s": wall_s}}, dict(launches))
 
 
 def recipe_commands(script, workdir, data_root):
@@ -5757,7 +6131,12 @@ def main():
     # the bf16 path against the JAX package's dtype=bfloat16 model, from
     # the reference file
     torch.cuda.empty_cache()
-    bf16_line, bf16_launches = bf16_parity_slice(dev, smi)
+    bf16_line, bf16_launches, bf16_card = bf16_parity_slice(dev, smi)
+    # its step at world 2: two ranks sharing the card under gloo
+    torch.cuda.empty_cache()
+    w2_line, w2_launches = bf16_world2_slice(
+        torch.device("cuda", torch.cuda.current_device()), smi, bf16_card)
+    del bf16_card
     # data parallelism: a group of one rank under NCCL, then two ranks
     # sharing the card under gloo (NCCL refuses two ranks on one card),
     # each on cuda:<this card> explicitly
@@ -5831,7 +6210,8 @@ def main():
                "criteria": crit_launches, "loader_arms": arms_launches,
                "evals": evals_launches, "dp": dp_launches,
                "dp_criteria": dpc_launches, "profile": prof_launches,
-               "round_parity": rp_launches, "bf16_parity": bf16_launches}
+               "round_parity": rp_launches, "bf16_parity": bf16_launches,
+               "bf16_world2": w2_launches}
     launches = sum((Counter(n) for n in by_path.values()), Counter())
     check(all(launches[name] > 0 for name in KERNELS),
           f"a kernel was never launched on a main path: {dict(launches)}")
@@ -5840,7 +6220,7 @@ def main():
     compact = {"separators": (",", ":")}
     for line in (zoo_line, crit_line, cli_line, arms_line, voc_line,
                  evals_line, dp_line, dpc_line, prof_line, rp_line,
-                 bf16_line, eval_stats):
+                 bf16_line, w2_line, eval_stats):
         print(json.dumps(line, **compact))
     print(json.dumps({
         "slice": "cityscapes stage-1 train step", "card": smi,

@@ -42,7 +42,8 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def ref():
-    return cs.bf16_reference()
+    # every fixture's entry, from both reference files
+    return {name: cs.bf16_reference_of(name) for name in cs.BF16_FIXTURES}
 
 
 @pytest.mark.parametrize("name", ["full", "twin"])

@@ -1230,30 +1230,56 @@ def test_criteria_data_parallel_two_ranks_on_one_card(dev):
             1e-2 * np.linalg.norm(w), m
 
 
-@pytest.mark.parametrize("name", ["full", "twin"])
+@pytest.mark.parametrize("name", ["full", "twin", "voc"])
 def test_bf16_path_holds_the_jax_reference(dev, name):
     """The port's bf16 path on the card, through its entry points, against
-    the JAX package's dtype=bfloat16 model as tests/data/
-    bf16_reference.npz holds it (chip_smoke.py's bf16_parity phase, one
-    fixture): the weights rebuilt from seeds match the file's digest, each
-    float output lies within chip_smoke.BF16_TOL (twice the JAX package's
-    own spread under one bf16 ulp on 1% of its input pixels; the stage
-    outputs by the share of values that differ bitwise), each exact
-    output equals the file's outside the pixels or regions that flip
-    under the JAX package's own perturbations; K1-K4 once a step, K5 once
-    a pseudo-labelled image."""
+    the JAX package's dtype=bfloat16 model as the fixture's reference file
+    holds it (tests/data/bf16_reference.npz, bf16_reference_voc.npz;
+    chip_smoke.py's bf16_parity phase, one fixture): the weights rebuilt
+    from seeds match the file's digest, each float output lies within
+    chip_smoke.BF16_TOL (twice the JAX package's own spread under one
+    bf16 ulp on 1% of its input pixels; the stage outputs, the TTA views'
+    too, by the share of values that differ bitwise), each exact output
+    equals the file's outside the pixels or regions that flip under the
+    JAX package's own perturbations; K1-K4 once a step, K5 once a
+    pseudo-labelled image; for VOC (21 classes, 97x97) every kernel at C
+    at run time without the 16-byte path, and stage 2's step 0 on the
+    file's pseudo-labels."""
     import chip_smoke as cs
 
-    ref = cs.bf16_reference()[name]
+    ref = cs.bf16_reference_of(name)
     variables = cs.bf16_variables(name)
     assert cs.variables_digest(variables) == str(ref["digest"])
     inputs = cs.bf16_inputs(name)
+    s2 = ref["plbl"] if cs.bf16_recipe(name)["stage2"] else None
     _build.reset_launches()
-    out = cs.bf16_port_outputs(name, variables, inputs, dev)
+    with cs.kernel_instances() as seen:
+        out = cs.bf16_port_outputs(name, variables, inputs, dev,
+                                   s2_labels=s2)
     torch.cuda.synchronize()
     assert dict(_build.LAUNCHES) == {
         **{k: cs.BF16_STEPS for k in cs.STAGE1_KERNELS},
         "seg_max_fwd": cs.BF16_FIXTURES[name]["batch"]}
+    assert set(out) == cs.bf16_output_keys(ref)
+    if name == "voc":
+        assert seen == {"pixel_ce": {(21, 0, False)}, "ssm": {(21, 0)},
+                        "seg_max_fwd": {(21, 0, segment_max.ANY)}}
     _, bad = cs.bf16_compare(name, ref, {"card": out},
                              inputs[0][0]["labels"])
     assert not bad["card"], bad
+
+
+def test_bf16_world2_holds_the_jax_reference(dev):
+    """The port's bf16 step at world 2 (two ranks sharing the card under
+    gloo, chip_smoke.py's bf16_world2 phase) against the JAX package's
+    step on a 2-device mesh (the 'world2/' entries of tests/data/
+    bf16_reference_voc.npz): the summed step-0 gradient's sample and
+    norms per leaf within the VOC fixture's grad0 and grad0_norm
+    tolerances, the loss and its parts within loss0's, K1-K4 once on
+    each rank."""
+    import chip_smoke as cs
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    line, launches = cs.bf16_world2_slice(card, "card")
+    assert launches == {k: 2 for k in cs.STAGE1_KERNELS}
+    assert set(line["bf16_world2"]["fixtures"]) == {"voc"}
