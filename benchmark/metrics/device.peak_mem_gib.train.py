@@ -1,0 +1,7 @@
+"""device.peak_mem_gib.train: max_memory_allocated() over the window, GiB."""
+
+from benchmark import readers
+
+
+def read(ctx):
+    return readers.peak_gib(ctx)
