@@ -36,6 +36,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from mulactseg_tpu_torch.parallel import mesh
+from mulactseg_tpu_torch.utils.spans import span
 
 PREFETCH = 4  # batches in flight, at least
 _SHARED_BYTES = 1 << 16  # arrays a worker returns through shared memory
@@ -173,17 +174,24 @@ atexit.register(shutdown_workers)
 def _gather(items) -> Dict:
     """The batch of the workers' items: read from shared memory, collated,
     the blocks freed (also those of the other items when one failed)."""
-    samples, error = [], None
-    for f in items:
-        try:
-            samples.append(f.result())
-        except Exception as e:  # raised below, after the others are freed
-            error = error or e
-    if error is not None:
-        for sample in samples:
-            _free_shared(sample)
-        raise error
-    return _collate_shared(samples)
+    with span("loader.build"):
+        samples, error = [], None
+        for f in items:
+            try:
+                samples.append(f.result())
+            except Exception as e:  # raised below, once the others are freed
+                error = error or e
+        if error is not None:
+            for sample in samples:
+                _free_shared(sample)
+            raise error
+        return _collate_shared(samples)
+
+
+def _build_items(fetch, ids, params) -> Dict:
+    """The batch of items built on a provider's thread."""
+    with span("loader.build"):
+        return collate([fetch(i, p) for i, p in zip(ids, params)])
 
 
 class _Items:
@@ -210,8 +218,7 @@ class _Items:
         if self.token is None:
             ds = self.dataset
             fetch = ds.load if hasattr(ds, "draw") else (lambda i, p: ds[i])
-            return self.pool.submit(lambda: collate(
-                [fetch(i, p) for i, p in zip(ids, params)])), []
+            return self.pool.submit(_build_items, fetch, ids, params), []
         items = [self.procs[i % len(self.procs)].submit(
             _worker_load, self.token, i, p) for i, p in zip(ids, params)]
         return self.pool.submit(_gather, items), items
@@ -351,13 +358,14 @@ class DataProvider:
         return self._gen()
 
     def __next__(self):
-        if self._iter is None:
-            self._iter = self._gen()
-        try:
-            return next(self._iter)
-        except StopIteration:
-            self._iter = self._gen()
-            return next(self._iter)
+        with span("loader.next"):
+            if self._iter is None:
+                self._iter = self._gen()
+            try:
+                return next(self._iter)
+            except StopIteration:
+                self._iter = self._gen()
+                return next(self._iter)
 
     def close(self):
         """Stop the worker threads, or free the dataset in the worker

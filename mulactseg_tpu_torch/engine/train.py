@@ -72,6 +72,7 @@ from mulactseg_tpu_torch.losses.standard import cross_entropy
 from mulactseg_tpu_torch.models.layers import Dropout, bn_frozen
 from mulactseg_tpu_torch.parallel import mesh
 from mulactseg_tpu_torch.utils.schedule import ramp_up
+from mulactseg_tpu_torch.utils.spans import span
 
 _REGION = ("target", "spx", "spmask")
 
@@ -574,7 +575,12 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
     before the train forward (train.py:595-600). A criterion with
     needs_rng (rand_multi_ce) draws from a generator of its own on the
     device, apart from the dropout stream, seeded with cfg.seed + 1 (the
-    round loop seeds dropout with cfg.seed)."""
+    round loop seeds dropout with cfg.seed).
+
+    Each call is a span train.step (utils/spans.py) holding the spans
+    train.h2d (the copies to the device), train.forward (the train-mode
+    forward), train.loss, train.backward and train.optimizer (its
+    step)."""
     dev = resolve_device(device)
     # an unknown method raises here on every rank, before any collective
     criterion = get_criterion(cfg)
@@ -592,8 +598,13 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
                else None)
 
     def step(batch):
-        batch = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True)
-                 for k in keys if k in batch}
+        with span("train.step"):
+            return _step(batch)
+
+    def _step(batch):
+        with span("train.h2d"):
+            batch = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True)
+                     for k in keys if k in batch}
         images = batch["images"]
         if images.dtype == torch.uint8:
             images = _device_normalize(images)
@@ -617,15 +628,19 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
             extra = {"generator": sampler}
         model.train()
         set_lr(opt, cfg, step.step)
-        with bn_frozen(model, cfg.freeze_bn), torch.autocast(
-                dev.type, dtype=torch.bfloat16, enabled=autocast):
+        with span("train.forward"), bn_frozen(model, cfg.freeze_bn), \
+                torch.autocast(dev.type, dtype=torch.bfloat16,
+                               enabled=autocast):
             logits = model(images)
-        total, aux = (criterion(logits, batch) if extra is None
-                      else criterion(logits, batch, extra))
+        with span("train.loss"):
+            total, aux = (criterion(logits, batch) if extra is None
+                          else criterion(logits, batch, extra))
         opt.zero_grad(set_to_none=True)
-        total.backward()
+        with span("train.backward"):
+            total.backward()
         mesh.all_reduce_grads(model)
-        opt.step()
+        with span("train.optimizer"):
+            opt.step()
         step.step += 1
         return _global_aux(aux)
 

@@ -22,9 +22,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from mulactseg_tpu_torch.ops.segment_max import segment_max_grad
+from mulactseg_tpu_torch.utils.spans import span
 
 NEG = -1e30
 
@@ -118,7 +118,7 @@ def cosine_prototype_plbl(feats, probs, spx, pixel_valid, proto_sid,
     proto_cls = proto_cls.long()
 
     sid = torch.where(pixel_valid, spx, S)
-    with record_function("plbl.k5"):
+    with span("plbl.k5"):
         _, argpix = segment_max_grad(probs.float(), sid, S)
     src_pix = argpix[proto_sid.clamp(0, S - 1), proto_cls].long()
     proto_ok = proto_valid & (src_pix < P) & (proto_sid < S)
@@ -138,7 +138,7 @@ def cosine_prototype_plbl(feats, probs, spx, pixel_valid, proto_sid,
     bounds = [(lo, min(lo + chunk, P)) for lo in range(0, P, chunk)]
     nn_proto = torch.empty(P, dtype=torch.long, device=dev)
     nn_sim = torch.empty(P, device=dev)
-    with record_function("plbl.pass1"):
+    with span("plbl.pass1"):
         for lo, hi in bounds:
             own = (proto_sid[None, :] == spx[lo:hi, None].long()) \
                 & proto_ok[None, :]
@@ -146,7 +146,7 @@ def cosine_prototype_plbl(feats, probs, spx, pixel_valid, proto_sid,
             nn_sim[lo:hi] = s_own.amax(dim=-1)
             nn_proto[lo:hi] = s_own.argmax(dim=-1)
 
-    with record_function("plbl.threshold"):
+    with span("plbl.threshold"):
         assigned = pixel_valid & (nn_sim > NEG / 2)
         key = torch.where(assigned, nn_proto, NP)
         # (key, sim) order: a stable sort on sim, then a stable sort on the
@@ -169,7 +169,7 @@ def cosine_prototype_plbl(feats, probs, spx, pixel_valid, proto_sid,
 
     plbl = torch.full((P,), ignore_value, dtype=torch.long, device=dev)
     if propagate:
-        with record_function("plbl.pass2"):
+        with span("plbl.pass2"):
             for lo, hi in bounds:
                 sim = sim_of(lo, hi)
                 cand = adj_t[spx[lo:hi].long()] & proto_ok[None, :]

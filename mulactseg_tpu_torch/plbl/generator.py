@@ -46,7 +46,6 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from mulactseg_tpu_torch.device import bf16_autocast, resolve_device
 from mulactseg_tpu_torch.engine.evaluate import eval_forward
@@ -64,6 +63,7 @@ from mulactseg_tpu_torch.plbl.simple import (
 )
 from mulactseg_tpu_torch.utils.metrics import MeanIoU
 from mulactseg_tpu_torch.utils.png import write_gray8, write_rgb8
+from mulactseg_tpu_torch.utils.spans import span
 
 # name: (include_onehot, propagate, filter_within, filter_prop)
 _COS_TYPES = {
@@ -210,14 +210,15 @@ class PseudoLabelGenerator:
             prep = (pool.submit(self.host_prep, batch, suppix)
                     if batch is not None else None)
             while batch is not None:
-                nxt = next(it, None)
-                this_prep = prep.result()
+                with span("plbl.next"):
+                    nxt = next(it, None)
+                    this_prep = prep.result()
                 prep = (pool.submit(self.host_prep, nxt, suppix)
                         if nxt is not None else None)
                 plbl = self.plbl_for_batch(batch, prep=this_prep)
-                with record_function("plbl.fetch"):
+                with span("plbl.fetch"):
                     u8 = plbl.to(torch.uint8).cpu().numpy()
-                with record_function("plbl.save"):
+                with span("plbl.save"):
                     iou._after_step_host(u8, batch["labels"])
                     if save_dir:
                         lbl_id = os.path.basename(
@@ -304,7 +305,7 @@ class PseudoLabelGenerator:
         H, W = spx_map.shape
         P = H * W
         if ptype not in _COS_TYPES:
-            with record_function("plbl.forward"):
+            with span("plbl.forward"):
                 logits = eval_forward(self.model, batch["images"], self.dev,
                                       self.autocast)
             spmask = self._tensor(np.asarray(batch["spmask"][0], bool))
@@ -330,7 +331,7 @@ class PseudoLabelGenerator:
             prep = self.host_prep(batch, suppix)
         targets, spmask, proto_sid, proto_cls, proto_valid, proto_adj, \
             pixel_valid = prep
-        with record_function("plbl.forward"):
+        with span("plbl.forward"):
             if self.sliding is not None:
                 feat, logits = self.sliding(batch["images"])
             elif self.use_tta:
@@ -341,17 +342,17 @@ class PseudoLabelGenerator:
                                             self.dev, self.autocast,
                                             return_feat=True,
                                             feat_bf16=self.feat_bf16)
-        with record_function("plbl.softmax"):
+        with span("plbl.softmax"):
             probs = torch.softmax(logits[0].float(), dim=0)  # (C, H, W)
 
+        with span("plbl.upload"):
+            tables = [self._tensor(a) for a in (
+                spx_map.reshape(-1), pixel_valid, proto_sid, proto_cls,
+                proto_valid, proto_adj)]
         # (Ch, P) and (C, P) planes viewed as (P, Ch) and (P, C): no copy
         plbl = cosine_prototype_plbl(
             feat[0].reshape(feat.shape[1], P).t(),
-            probs.reshape(probs.shape[0], P).t(),
-            self._tensor(spx_map.reshape(-1)), self._tensor(pixel_valid),
-            self._tensor(proto_sid), self._tensor(proto_cls),
-            self._tensor(proto_valid), self._tensor(proto_adj),
-            nseg=cfg.nseg,
+            probs.reshape(probs.shape[0], P).t(), *tables, nseg=cfg.nseg,
             threshold_median=cfg.cosprop_threshold_method == "median",
             propagate=propagate, filter_within_by_pred=filt_within,
             filter_prop_by_pred=filt_prop, sim_bf16=self.sim_bf16).view(H, W)

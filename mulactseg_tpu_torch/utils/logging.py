@@ -1,6 +1,6 @@
 """Run logging, the port's copy of mulactseg_tpu/utils/logging.py: file
-logger, metric meters, the always-on metrics.jsonl stream (the same lines
-as the JAX package's) and an optional wandb mirror."""
+logger, the always-on metrics.jsonl stream (the same lines as the JAX
+package's) and an optional wandb mirror."""
 
 from __future__ import annotations
 
@@ -8,43 +8,9 @@ import json
 import logging
 import os
 import time
-from collections import defaultdict
 from typing import Dict, Optional
 
 from mulactseg_tpu_torch.parallel import mesh
-
-
-class TimeLogger:
-    def __init__(self):
-        self.t0 = time.time()
-
-    def start(self):
-        self.t0 = time.time()
-
-    def end(self, label: str = "") -> float:
-        dt = time.time() - self.t0
-        self.t0 = time.time()
-        return dt
-
-
-class AverageMeter:
-    """Keyed running averages (utils/common.py:21-57 semantics)."""
-
-    def __init__(self):
-        self.sums = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    def update(self, values: Dict[str, float], n: int = 1):
-        for k, v in values.items():
-            self.sums[k] += float(v) * n
-            self.counts[k] += n
-
-    def average(self) -> Dict[str, float]:
-        return {k: self.sums[k] / max(self.counts[k], 1) for k in self.sums}
-
-    def reset(self):
-        self.sums.clear()
-        self.counts.clear()
 
 
 def get_file_logger(save_dir: str, name: str = "mulactseg_tpu_torch",

@@ -9,6 +9,9 @@ superpixels are all labelled.
   as JSON and holds the step's aten:: ops; a second round, its items
   built in worker processes started inside the traced window, adds a
   second file beside it and ends at the first round's weights.
+- The trace holds each step's train.step span and, inside it, the spans
+  train.h2d, train.forward, train.loss, train.backward and
+  train.optimizer, in that order.
 - The profiled run's weights, optimizer state and step are bitwise those
   of an unprofiled run from the same init.
 - The JAX ALTrainer at profile=True, with the same configuration, init
@@ -131,6 +134,26 @@ def test_profiled_train_writes_one_trace_per_round(runs):
     # the validation inside the traced window saved the best checkpoint
     assert os.path.exists(tmp / "profiled" / "checkpoint01")
     assert not os.path.exists(tmp / "plain" / "profile")
+
+
+def test_trace_holds_the_train_step_spans(runs):
+    """Each step of the traced loop is a train.step span (utils/spans.py)
+    holding its five layers' spans, in order, on its thread."""
+    with open(runs["profiled"].trace_file) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"
+                  and e.get("name", "").startswith("train.")]
+    children = ["train.h2d", "train.forward", "train.loss",
+                "train.backward", "train.optimizer"]
+    steps = [e for e in events if e["name"] == "train.step"]
+    assert len(steps) == ITRS
+    for s in steps:
+        inner = sorted((e for e in events if e["name"] in children
+                        and e["tid"] == s["tid"]
+                        and s["ts"] <= e["ts"]
+                        and e["ts"] + e["dur"] <= s["ts"] + s["dur"]),
+                       key=lambda e: e["ts"])
+        assert [e["name"] for e in inner] == children
 
 
 def test_profiled_run_is_bitwise_the_unprofiled_one(runs):
