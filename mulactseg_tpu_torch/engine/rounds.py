@@ -155,12 +155,16 @@ class ALTrainer:
     def _load_optimizer(self, opt_state) -> None:
         """Load an optimizer state but keep this round's schedule (base LR
         and length), which the JAX package keeps in its transform, not in
-        the saved state."""
-        keep = [(g["base_lr"], g["total_itrs"])
-                for g in self.optimizer.param_groups]
-        self.optimizer.load_state_dict(opt_state)
-        for g, (base_lr, total) in zip(self.optimizer.param_groups, keep):
-            g["base_lr"], g["total_itrs"] = base_lr, total
+        the saved state, and this device's LR holder (engine/state.py: a
+        device tensor on a card, a float on the CPU), whichever device
+        wrote the state."""
+        keys = ("base_lr", "total_itrs", "lr", "capturable")
+        own = [{k: g[k] for k in keys if k in g}
+               for g in self.optimizer.param_groups]
+        self.optimizer.load_state_dict({
+            **opt_state, "param_groups": [
+                {**saved, **kept} for saved, kept in
+                zip(opt_state["param_groups"], own)]})
 
     # -- checkpointing --------------------------------------------------------
     def save(self, path: Optional[str] = None):

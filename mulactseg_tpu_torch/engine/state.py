@@ -13,6 +13,12 @@ group's base LR, with no floor. Each group keeps its base LR (train_lr x
 lr_mult x its scale; adaptive_train_lr passes the round index as
 lr_mult) and the schedule's length (total_itrs, else cfg.finetune_itrs),
 as the JAX package's make_optimizer(cfg, total_itrs, lr_mult).
+
+On a card, AdamW is built with capturable=True and each group's LR in a
+float32 tensor on the parameters' device, which set_lr fills in place:
+the update then reads no Python number, so engine/train.py can replay it
+inside a CUDA graph, and the eager steps take the same update. The CPU
+and SGD keep Python-float LRs.
 """
 
 from __future__ import annotations
@@ -35,9 +41,14 @@ def make_optimizer(model: torch.nn.Module, cfg,
     groups = [{"params": backbone, "base_lr": base_lr, "total_itrs": total},
               {"params": head, "base_lr": base_lr * cfg.cls_lr_scale,
                "total_itrs": total}]
+    dev = next(model.parameters()).device
     if cfg.optimizer == "adamw":
         opt = torch.optim.AdamW(groups, lr=cfg.train_lr, betas=(0.9, 0.999),
-                                eps=1e-8, weight_decay=cfg.weight_decay)
+                                eps=1e-8, weight_decay=cfg.weight_decay,
+                                capturable=dev.type == "cuda")
+        if dev.type == "cuda":
+            for g in opt.param_groups:
+                g["lr"] = torch.zeros((), device=dev)
     elif cfg.optimizer == "sgd":
         opt = torch.optim.SGD(groups, lr=cfg.train_lr, momentum=0.9,
                               dampening=0.0, nesterov=False,
@@ -49,10 +60,23 @@ def make_optimizer(model: torch.nn.Module, cfg,
 
 
 def set_lr(opt: torch.optim.Optimizer, cfg, step: int) -> None:
-    """Set each group's LR for the update about to be taken at `step`."""
+    """Set each group's LR for the update about to be taken at `step`: a
+    device LR tensor is filled in place (no host read), a float
+    replaced."""
     for g in opt.param_groups:
         if cfg.scheduler == "poly":
-            g["lr"] = poly_lr(g["base_lr"], g["total_itrs"], cfg.power,
-                              cfg.min_lr)(step)
+            lr = poly_lr(g["base_lr"], g["total_itrs"], cfg.power,
+                         cfg.min_lr)(step)
         else:
-            g["lr"] = g["base_lr"]
+            lr = g["base_lr"]
+        if isinstance(g["lr"], torch.Tensor):
+            g["lr"].fill_(lr)
+        else:
+            g["lr"] = lr
+
+
+def device_lrs(opt: torch.optim.Optimizer) -> bool:
+    """Whether every group's LR lives in a device tensor (make_optimizer's
+    AdamW on a card), so the update can be replayed in a CUDA graph."""
+    return all(isinstance(g["lr"], torch.Tensor) and g.get("capturable")
+               for g in opt.param_groups)

@@ -12,12 +12,15 @@ criterion, sequence, and the plain temperature CE of stage 2
 is its validation's, cfg.sliding_eval). NaN guards mirror
 trainer/active_joint_multi.py:17-29 (zero_if_nan per component).
 
-One eager step per call: forward (BN in train mode, conv stack under
+One step per call: forward (BN in train mode, conv stack under
 bfloat16 autocast on the card as cfg.dtype="bfloat16" asks), the criterion
 on the float32 NCHW logits, backward, the optimizer with its per-group
 schedule. The step moves to the device only the images and the keys its
-criterion reads. The JAX package's K-step lax.scan only hides TPU
-dispatch latency and has no counterpart here.
+criterion reads. On one card the step is captured once into a CUDA graph
+and replayed on later calls, one host call for the ~4,600 launches of
+the same kernels in the same order (make_train_step says when); this is
+the card's counterpart of the JAX package's K-step lax.scan, which only
+hides TPU dispatch latency. Everywhere else each call runs eagerly.
 
 Under data parallelism (parallel/mesh.py) each rank steps on its rows of
 the global batch: the weights are broadcast from rank 0 when the step is
@@ -30,13 +33,15 @@ run on each rank's rows alone (BN in eval mode needs no collective).
 
 from __future__ import annotations
 
+import logging
+from collections import Counter
 from typing import Callable, Dict, Optional
 
 import torch
 
 from mulactseg_tpu_torch.data.constants import IMAGENET_MEAN, IMAGENET_STD
 from mulactseg_tpu_torch.device import bf16_autocast, resolve_device
-from mulactseg_tpu_torch.engine.state import make_optimizer, set_lr
+from mulactseg_tpu_torch.engine.state import device_lrs, make_optimizer, set_lr
 from mulactseg_tpu_torch.losses.fused import lossdecomp_fused
 from mulactseg_tpu_torch.losses.hier import (
     async_hier_group_multi_label_ce,
@@ -70,9 +75,12 @@ from mulactseg_tpu_torch.losses.partial import (
 )
 from mulactseg_tpu_torch.losses.standard import cross_entropy
 from mulactseg_tpu_torch.models.layers import Dropout, bn_frozen
+from mulactseg_tpu_torch.ops import _build
 from mulactseg_tpu_torch.parallel import mesh
 from mulactseg_tpu_torch.utils.schedule import ramp_up
 from mulactseg_tpu_torch.utils.spans import span
+
+log = logging.getLogger("mulactseg_tpu_torch")
 
 _REGION = ("target", "spx", "spmask")
 
@@ -536,12 +544,48 @@ def get_criterion(cfg):
     return CRITERIA[cfg.method](cfg)
 
 
-def _device_normalize(x):
+def _norm_constants(device):
+    """The ImageNet mean and std as (1, 3, 1, 1) tensors on `device`."""
+    return tuple(torch.as_tensor(v, device=device)[None, :, None, None]
+                 for v in (IMAGENET_MEAN, IMAGENET_STD))
+
+
+def _device_normalize(x, constants=None):
     """uint8 NCHW images -> ImageNet-normalised float32, same op order as
-    the JAX package's _device_normalize (train.py:554-563)."""
-    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)[None, :, None, None]
-    std = torch.as_tensor(IMAGENET_STD, device=x.device)[None, :, None, None]
+    the JAX package's _device_normalize (train.py:554-563). `constants`:
+    _norm_constants(x.device) made beforehand (a CUDA graph's capture
+    cannot copy them from the host), else made here."""
+    mean, std = constants or _norm_constants(x.device)
     return (x.float() / 255.0 - mean) / std
+
+
+# criterion flags that keep the step eager: the eval-mode forwards and
+# host-side `extra` of needs_feat and needs_weak_forward, the sampler of
+# needs_rng
+_EAGER_FLAGS = ("needs_feat", "needs_weak_forward", "needs_rng")
+
+
+def graphable(dev, criterion, opt) -> bool:
+    """Whether make_train_step's step may capture and replay a CUDA graph,
+    from what it can observe: a CUDA device, no process group, a
+    criterion with none of _EAGER_FLAGS, anomaly detection off and every
+    optimizer group's LR in a device tensor (engine/state.device_lrs: the
+    card's AdamW). The step also holds each batch to the captured
+    signature (_signature)."""
+    return (dev.type == "cuda" and not mesh.active()
+            and not any(getattr(criterion, f, False) for f in _EAGER_FLAGS)
+            and not torch.is_anomaly_enabled() and device_lrs(opt))
+
+
+def _signature(host) -> tuple:
+    """(key, shape, dtype) of each tensor of the batch the step reads."""
+    return tuple((k, tuple(t.shape), t.dtype) for k, t in host.items())
+
+
+def _aux_copy(aux):
+    """The graph's static losses copied out by one stack, unbound into
+    views: each call's values stay the caller's after the next replay."""
+    return dict(zip(aux, torch.stack(list(aux.values())).unbind()))
 
 
 def make_train_step(model: torch.nn.Module, cfg, device="cuda",
@@ -561,7 +605,7 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
     make_optimizer(model, cfg). The step count (step.step, which sets the
     schedule; a caller restoring a checkpoint sets it), the optimizer
     (step.optimizer) and the dropout generator live on the returned
-    function.
+    callable.
 
     A criterion with needs_feat gets an eval-mode forward of the same
     images with return_feat, before the train forward (so BN reads the
@@ -577,76 +621,196 @@ def make_train_step(model: torch.nn.Module, cfg, device="cuda",
     device, apart from the dropout stream, seeded with cfg.seed + 1 (the
     round loop seeds dropout with cfg.seed).
 
-    Each call is a span train.step (utils/spans.py) holding the spans
-    train.h2d (the copies to the device), train.forward (the train-mode
-    forward), train.loss, train.backward and train.optimizer (its
-    step)."""
-    dev = resolve_device(device)
-    # an unknown method raises here on every rank, before any collective
-    criterion = get_criterion(cfg)
-    mesh.broadcast_state(model)
-    needs_feat = getattr(criterion, "needs_feat", False)
-    needs_rng = getattr(criterion, "needs_rng", False)
-    needs_weak = getattr(criterion, "needs_weak_forward", False)
-    opt = optimizer if optimizer is not None else make_optimizer(model, cfg)
-    keys = ("images",) + criterion.keys
-    for m in model.modules():
-        if isinstance(m, Dropout):
-            m.generator = generator
-    autocast = bf16_autocast(dev, cfg)
-    sampler = (torch.Generator(dev).manual_seed(cfg.seed + 1) if needs_rng
-               else None)
+    The CUDA graph. Where graphable() holds, a call whose batch has the
+    key, shape and dtype signature of the eager step before it (or of a
+    graph dropped since) captures the step (normalisation, forward,
+    criterion, zero_grad, backward, opt.step) into one
+    torch.cuda.CUDAGraph, inputs read from static device buffers and the
+    dropout generator registered with the graph, and replays it once; later calls with that signature copy the batch
+    into the buffers, fill the LRs of step.step (set_lr) and replay. A
+    replay draws the dropout masks an eager step would draw from the same
+    generator state, and returns its losses as new tensors. Any other
+    call runs eagerly and leaves the graph in place; a replaced optimizer
+    state or param_groups object drops it (it read their tensors), and a
+    capture that fails leaves every later call eager. ops/_build.LAUNCHES
+    counts what reaches the device: a capture adds nothing, each replay
+    the captured step's launches.
 
-    def step(batch):
+    Each call is a span train.step (utils/spans.py) holding train.h2d
+    (the copies to the device) and one of train.eager (the eager body:
+    train.forward, the train-mode forward; train.loss; train.backward;
+    train.optimizer, its step), train.replay, or train.capture (the
+    capture, which runs the body's spans once more without device work)
+    and then train.replay."""
+    return _TrainStep(model, cfg, resolve_device(device), generator,
+                      optimizer)
+
+
+class _TrainStep:
+    """make_train_step's step: a class and not a closure, so that nothing
+    refers back to it and dropping it frees its CUDA graph's memory at
+    once, not at the next garbage collection."""
+
+    def __init__(self, model, cfg, dev, generator, optimizer):
+        # an unknown method raises here on every rank, before any
+        # collective
+        self.criterion = criterion = get_criterion(cfg)
+        mesh.broadcast_state(model)
+        self.model, self.cfg, self.dev, self.generator = (model, cfg, dev,
+                                                          generator)
+        self.needs_feat = getattr(criterion, "needs_feat", False)
+        self.needs_rng = getattr(criterion, "needs_rng", False)
+        self.needs_weak = getattr(criterion, "needs_weak_forward", False)
+        self.optimizer = opt = (optimizer if optimizer is not None
+                                else make_optimizer(model, cfg))
+        self.keys = ("images",) + criterion.keys
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.generator = generator
+        self.autocast = bf16_autocast(dev, cfg)
+        self.sampler = (torch.Generator(dev).manual_seed(cfg.seed + 1)
+                        if self.needs_rng else None)
+        self.norm = _norm_constants(dev)
+        self.step = 0
+        # the captured step: graph, static inputs and losses, signature
+        # (kept when the graph is dropped), launches a replay adds, the
+        # optimizer objects it read; `warm` the signature of the last
+        # eager step and `stateful` the parameters with optimizer state
+        # after it; `off` once a capture failed
+        self.graph = self.sig = self.inputs = self.aux = None
+        self.launches, self.opt_objs = Counter(), (opt.state,
+                                                   opt.param_groups)
+        self.warm, self.stateful, self.off = None, (), False
+
+    def __call__(self, batch):
+        opt = self.optimizer
         with span("train.step"):
-            return _step(batch)
+            host = {k: torch.as_tensor(batch[k]) for k in self.keys
+                    if k in batch}
+            sig = (_signature(host) if not self.off
+                   and graphable(self.dev, self.criterion, opt) else None)
+            if self.graph is not None and (
+                    self.opt_objs[0] is not opt.state
+                    or self.opt_objs[1] is not opt.param_groups):
+                # it read the replaced objects' tensors
+                self.graph = self.inputs = self.aux = None
+            out = None
+            if sig is not None and self.graph is not None \
+                    and sig == self.sig:
+                out = self._replay(host)
+            elif sig is not None and self.graph is None \
+                    and sig in (self.warm, self.sig) \
+                    and all(p in opt.state for p in self.stateful):
+                out = self._capture(host, sig)
+            if out is None:
+                out = self._eager(host)
+                self.warm, self.stateful = sig, list(opt.state)
+            self.step += 1
+            return out
 
-    def _step(batch):
-        with span("train.h2d"):
-            batch = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True)
-                     for k in keys if k in batch}
+    def _body(self, batch, cache=None):
+        """One step on the device tensors of `batch`: forward, criterion,
+        backward, update; the criterion's aux losses."""
+        model, cfg, dev, opt = self.model, self.cfg, self.dev, self.optimizer
         images = batch["images"]
         if images.dtype == torch.uint8:
-            images = _device_normalize(images)
+            images = _device_normalize(images, self.norm)
         extra = None
-        if needs_weak:
+        if self.needs_weak:
             weak = batch["images_weak"]
             if weak.dtype == torch.uint8:
-                weak = _device_normalize(weak)
+                weak = _device_normalize(weak, self.norm)
             model.eval()
             with torch.no_grad(), torch.autocast(
-                    dev.type, dtype=torch.bfloat16, enabled=autocast):
+                    dev.type, dtype=torch.bfloat16, enabled=self.autocast):
                 batch["logits_weak"] = model(weak).float()
-        if needs_feat:
+        if self.needs_feat:
             model.eval()
             with torch.no_grad(), torch.autocast(
-                    dev.type, dtype=torch.bfloat16, enabled=autocast):
+                    dev.type, dtype=torch.bfloat16, enabled=self.autocast):
                 feat, plbl_logits = model(images, return_feat=True)
             extra = {"feat": feat, "plbl_logits": plbl_logits,
-                     "frac": step.step / float(cfg.finetune_itrs)}
-        elif needs_rng:
-            extra = {"generator": sampler}
+                     "frac": self.step / float(cfg.finetune_itrs)}
+        elif self.needs_rng:
+            extra = {"generator": self.sampler}
         model.train()
-        set_lr(opt, cfg, step.step)
         with span("train.forward"), bn_frozen(model, cfg.freeze_bn), \
                 torch.autocast(dev.type, dtype=torch.bfloat16,
-                               enabled=autocast):
+                               enabled=self.autocast, cache_enabled=cache):
             logits = model(images)
         with span("train.loss"):
-            total, aux = (criterion(logits, batch) if extra is None
-                          else criterion(logits, batch, extra))
+            total, aux = (self.criterion(logits, batch) if extra is None
+                          else self.criterion(logits, batch, extra))
         opt.zero_grad(set_to_none=True)
         with span("train.backward"):
             total.backward()
         mesh.all_reduce_grads(model)
         with span("train.optimizer"):
             opt.step()
-        step.step += 1
-        return _global_aux(aux)
+        return aux
 
-    step.step = 0
-    step.optimizer = opt
-    return step
+    def _eager(self, host):
+        with span("train.h2d"):
+            batch = {k: t.to(self.dev, non_blocking=True)
+                     for k, t in host.items()}
+        with span("train.eager"):
+            set_lr(self.optimizer, self.cfg, self.step)
+            return _global_aux(self._body(batch))
+
+    def _capture(self, host, sig):
+        """Capture the step on this batch and replay it once; None where
+        the capture fails (every later call then runs eagerly)."""
+        dev, opt = self.dev, self.optimizer
+        with span("train.h2d"):
+            inputs = {k: torch.empty(t.shape, dtype=t.dtype, device=dev)
+                      .copy_(t, non_blocking=True) for k, t in host.items()}
+        with span("train.capture"):
+            before = Counter(_build.LAUNCHES)
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            opt.zero_grad(set_to_none=True)
+            torch.cuda.synchronize(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            try:
+                with torch.cuda.stream(side):
+                    graph.capture_begin()
+                    try:
+                        aux = self._body(inputs, cache=False)
+                    finally:
+                        graph.capture_end()
+            except RuntimeError as err:
+                # strings, so that no record keeps the failed capture's
+                # frames (and its autograd graph) alive
+                log.warning("train step: the CUDA graph's capture failed "
+                            "(%s; %s); every later step runs eagerly",
+                            str(err), str(err.__context__))
+                self.off = True
+                return None
+            finally:
+                launches = Counter(_build.LAUNCHES)
+                launches.subtract(before)
+                _build.LAUNCHES.clear()
+                _build.LAUNCHES.update(before)
+            torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph, self.sig, self.inputs = graph, sig, inputs
+        self.launches = +launches
+        self.aux = {k: v.detach() for k, v in aux.items()}
+        self.opt_objs = (opt.state, opt.param_groups)
+        return self._replay(None)
+
+    def _replay(self, host):
+        if host is not None:
+            with span("train.h2d"):
+                for k, t in host.items():
+                    self.inputs[k].copy_(t, non_blocking=True)
+        with span("train.replay"):
+            set_lr(self.optimizer, self.cfg, self.step)
+            self.graph.replay()
+            _build.LAUNCHES.update(self.launches)
+            self.model.train()
+            return _aux_copy(self.aux)
 
 
 def _global_aux(aux):

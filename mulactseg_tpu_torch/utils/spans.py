@@ -17,8 +17,10 @@ and is updated under a lock.
 
 The spans and the layers they time:
 
-  train.step, .h2d, .forward,     engine/train.make_train_step's step(),
-  .loss, .backward, .optimizer    the caller's thread
+  train.step, .h2d                engine/train.make_train_step's step(),
+  train.eager, .capture, .replay  the caller's thread: one of the three
+  train.forward, .loss,           a step (.replay after .capture); the
+  .backward, .optimizer           four inside .eager and .capture only
   loader.next                     data/loader.DataProvider.__next__
   loader.build                    a batch's build and collate, on the
                                   provider's threads

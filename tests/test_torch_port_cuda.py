@@ -61,7 +61,14 @@ largest and the renormalised features within 1e-4 of the CPU's. Data
 parallelism: two ranks sharing the card under gloo against one rank
 (BN, dropout, a fused step), as chip_smoke.py's dp phase, and three
 criteria with K5 in their step (the joint, an online and mseg), as its
-dp_criteria phase.
+dp_criteria phase. The train step's CUDA graph (engine/train.py), on
+chip_smoke.py's bf16 'full' fixture with dropout live: 5 steps (one
+eager, one captured and replayed, three replayed) against 5 eager steps
+from the same seeds, losses and update norms within that fixture's
+tolerances, each step's loss a tensor of its own; K1-K4 counted once an
+eager step and once a replay, nothing for the capture; a batch of another
+crop size eager with the graph kept; a replaced optimizer state captured
+anew; a criterion that cannot be captured (lscale) eager from then on.
 """
 
 import numpy as np
@@ -1283,3 +1290,154 @@ def test_bf16_world2_holds_the_jax_reference(dev):
     line, launches = cs.bf16_world2_slice(card, "card")
     assert launches == {k: 2 for k in cs.STAGE1_KERNELS}
     assert set(line["bf16_world2"]["fixtures"]) == {"voc"}
+
+
+# -- the train step's CUDA graph (engine/train.py make_train_step) ---------
+GRAPH_STEPS = 5
+
+
+def _graph_fixture(dev, seed=0):
+    """chip_smoke's bf16 'full' fixture (the Cityscapes recipe's model at
+    full width, batch 4, 96 x 96, nseg 24, bf16) with dropout live: its
+    config, weights and GRAPH_STEPS batches (its 3, in turn), the images
+    uint8 from `seed` so that the step normalises them."""
+    import chip_smoke as cs
+    from mulactseg_tpu_torch.config import Config
+
+    cfg = Config(**cs.bf16_config_kw("full"))
+    rng = np.random.RandomState(seed)
+    batches = []
+    for i in range(GRAPH_STEPS):
+        b = dict(cs.bf16_inputs("full")[0][i % cs.BF16_STEPS])
+        b["images"] = rng.randint(0, 256, b["images"].shape).astype(np.uint8)
+        batches.append(b)
+    return cfg, cs.bf16_variables("full"), batches
+
+
+def _graph_step(dev, cfg, variables):
+    from mulactseg_tpu_torch.engine.train import make_train_step
+    from mulactseg_tpu_torch.models import convert
+    from mulactseg_tpu_torch.models.factory import get_model
+
+    model = get_model(cfg.model, cfg.num_model_classes, cfg.output_stride,
+                      separable_conv=True, device=dev)
+    convert.load_variables(model, variables)
+    return model, make_train_step(
+        model, cfg, device=dev, generator=torch.Generator(dev).manual_seed(7))
+
+
+def _span_counts(before):
+    from mulactseg_tpu_torch.utils import spans
+
+    now = spans.snapshot()
+    return {n: now.get(n, (0,))[0] - before.get(n, (0,))[0]
+            for n in ("train.eager", "train.capture", "train.replay")}
+
+
+def test_graph_step_matches_the_eager_step(dev, monkeypatch):
+    """GRAPH_STEPS steps from the same weights, dropout seed and batches:
+    the graph's (step 1 eager, step 2 captured and replayed, the rest
+    replayed) against the eager step's, losses and each leaf's update norm
+    within chip_smoke.BF16_TOL['full'] ('losses', 'update_norm': the
+    fixture's card-against-reference tolerances); each step's loss a tensor
+    of its own."""
+    import chip_smoke as cs
+    from mulactseg_tpu_torch.engine import train as port_train
+    from mulactseg_tpu_torch.utils import spans
+
+    cfg, variables, batches = _graph_fixture(dev)
+    runs = {}
+    for mode in ("graph", "eager"):
+        with monkeypatch.context() as m:
+            if mode == "eager":
+                m.setattr(port_train, "graphable", lambda *a: False)
+            model, step = _graph_step(dev, cfg, variables)
+            start = {n: p.detach().double().clone()
+                     for n, p in model.named_parameters()}
+            before = spans.snapshot()
+            losses = [step(b)["train_loss"] for b in batches]
+            torch.cuda.synchronize()
+            runs[mode] = {
+                "losses": np.array([float(v) for v in losses]),
+                "update_norm": {n: float(torch.linalg.vector_norm(
+                    p.detach().double() - start[n]))
+                    for n, p in model.named_parameters()},
+                "spans": _span_counts(before), "ids": {id(v) for v in losses}}
+        del model, step
+    tol = cs.BF16_TOL["full"]
+    g, e = runs["graph"], runs["eager"]
+    assert g["spans"] == {"train.eager": 1, "train.capture": 1,
+                          "train.replay": GRAPH_STEPS - 1}
+    assert e["spans"] == {"train.eager": GRAPH_STEPS, "train.capture": 0,
+                          "train.replay": 0}
+    assert len(g["ids"]) == GRAPH_STEPS
+    assert len(set(g["losses"].tolist())) == GRAPH_STEPS
+    assert cs.bf16_distance("losses", g["losses"], e["losses"]) \
+        <= tol["losses"], (g["losses"], e["losses"])
+    assert cs.bf16_distance("update_norm", g["update_norm"],
+                            e["update_norm"]) <= tol["update_norm"]
+
+
+def test_graph_step_launch_counts_and_spans(dev):
+    """ops/_build.LAUNCHES counts what reaches the card: the eager step
+    and each replay K1-K4 once, the capture nothing. A batch of another
+    crop size runs eagerly and keeps the graph; replacing the optimizer's
+    state (load_state_dict) drops it, and the next call captures anew."""
+    import chip_smoke as cs
+    from mulactseg_tpu_torch.utils import spans
+
+    cfg, variables, batches = _graph_fixture(dev, seed=1)
+    model, step = _graph_step(dev, cfg, variables)
+    once = {k: 1 for k in cs.STAGE1_KERNELS}
+    want = [{"train.eager": 1, "train.capture": 0, "train.replay": 0},
+            {"train.eager": 0, "train.capture": 1, "train.replay": 1},
+            {"train.eager": 0, "train.capture": 0, "train.replay": 1}]
+    for b, w in zip(batches, want):
+        before = spans.snapshot()
+        _build.reset_launches()
+        step(b)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == once, w
+        assert _span_counts(before) == w
+
+    small = {k: (v[..., :80, :80] if k in ("images", "spx", "spmask",
+                                           "target_bits") else v)
+             for k, v in batches[3].items()}
+    for b, w in ((small, want[0]), (batches[3], want[2])):
+        before = spans.snapshot()
+        _build.reset_launches()
+        step(b)
+        assert dict(_build.LAUNCHES) == once
+        assert _span_counts(before) == w
+
+    opt = step.optimizer
+    opt.load_state_dict(opt.state_dict())
+    before = spans.snapshot()
+    _build.reset_launches()
+    loss = step(batches[4])["train_loss"]
+    assert dict(_build.LAUNCHES) == once
+    assert _span_counts(before) == want[1]
+    assert torch.isfinite(loss).item()
+
+
+def test_graph_capture_failure_leaves_the_step_eager(dev, caplog):
+    """A criterion whose step cannot be captured (lscale builds a constant
+    with torch.tensor(..., device=cuda), a host copy that a capture
+    refuses) logs one warning at its second call, and every call then
+    runs eagerly, each taking its step."""
+    import dataclasses
+
+    from mulactseg_tpu_torch.utils import spans
+
+    cfg, variables, batches = _graph_fixture(dev, seed=2)
+    cfg = dataclasses.replace(cfg,
+                              method="active_joint_multi_predignore_lscale")
+    model, step = _graph_step(dev, cfg, variables)
+    before = spans.snapshot()
+    with caplog.at_level("WARNING", logger="mulactseg_tpu_torch"):
+        losses = [float(step(b)["train_loss"]) for b in batches[:4]]
+    assert _span_counts(before) == {"train.eager": 4, "train.capture": 1,
+                                    "train.replay": 0}
+    assert sum("capture failed" in r.getMessage()
+               for r in caplog.records) == 1
+    assert step.step == 4 and np.isfinite(losses).all()
