@@ -47,7 +47,7 @@ def train_readings(cfg, mix, seed, dev, control, fault):
     for kind in ["program"] + (["half_batch"] if fault else []):
         model, step, _ = train.build(
             cfg, mix, seed, dev,
-            common.make_weights(cfg["num_outputs"], seed, dev, cfg["init"]))
+            common.make_weights(cfg, seed, dev))
         if kind == "half_batch":
             step = half_batch(step)
         loader = train.loader_of(items, cfg, mix, seed)
@@ -80,8 +80,7 @@ def plbl_readings(cfg, mix, seed, dev, control, fault):
     pcfg = plbl.port_config(cfg, seed)
     model = get_model(cfg["model"], cfg["num_outputs"], cfg["output_stride"],
                       separable_conv=cfg["separable_conv"], device=dev)
-    common.load_weights(model, common.make_weights(
-        cfg["num_outputs"], seed, dev, cfg["init"]))
+    common.load_weights(model, common.make_weights(cfg, seed, dev))
     model.eval()
     gen_ = PseudoLabelGenerator(model, pcfg, cfg["plbl"]["type"],
                                 max_protos=cfg["plbl"]["max_protos"],

@@ -12,8 +12,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from benchmark import yardstick
-from benchmark.reference import model as ref_model
+from benchmark import reference, yardstick
 
 
 def seed_of(seed: int, stream: int) -> int:
@@ -23,52 +22,57 @@ def seed_of(seed: int, stream: int) -> int:
 
 
 @torch.no_grad()
-def make_weights(num_outputs: int, seed: int, dev, init: Dict
-                 ) -> Dict[str, torch.Tensor]:
-    """The network's weights and BN buffers by name, drawn on `dev` from the
-    seed in one call: Kaiming-normal convolutions (fan_out in the backbone,
-    fan_in in the head) and class proxies (fan_in), BN scale 1 (the last BN
-    of each residual block at init['residual_bn_scale']), bias 0, running
-    mean 0 and variance 1."""
+def make_weights(cfg: Dict, seed: int, dev) -> Dict[str, torch.Tensor]:
+    """The configuration's reference network's weights and buffers by name,
+    made on `dev` from the seed by its module's `weight_rule`: the drawn
+    leaves in its order from one normal draw, each at its standard
+    deviation, every other leaf filled."""
+    ref = reference.of(cfg)
     with torch.device("meta"):
-        net = ref_model.Net(num_outputs)
-    convs = {f"{n}.weight": m for n, m in net.named_modules()
-             if isinstance(m, ref_model.Conv)}
-    drawn = [(n, p.shape) for n, p in net.named_parameters()
-             if n in convs or n.endswith("proxy")]
-    total = sum(math.prod(s) for _, s in drawn)
+        net = ref.Net(cfg)
+    drawn, fill = ref.weight_rule(net, cfg)
+    shapes = dict(net.named_parameters())
+    shapes.update(net.named_buffers())
+    total = sum(shapes[n].numel() for n, _ in drawn)
     g = torch.Generator(device=dev).manual_seed(seed_of(seed, 1))
     z = torch.randn(total, generator=g, device=dev)
     out, at = {}, 0
-    for n, shape in drawn:
-        o, i, kh, kw = shape
-        head = n.endswith("proxy") or convs[n].head
-        std = math.sqrt(2.0 / ((i if head else o) * kh * kw))
+    for n, std in drawn:
+        shape = shapes[n].shape
         k = math.prod(shape)
         out[n] = (z[at:at + k] * std).view(shape)
         at += k
-    res = float(init.get("residual_bn_scale", 1.0))
-    for n, p in net.named_parameters():
+    for n, t in shapes.items():
         if n not in out:
-            val = 0.0 if n.endswith("bias") else (
-                res if ".bn3." in n else 1.0)
-            out[n] = torch.full(p.shape, val, device=dev)
-    for n, b in net.named_buffers():
-        out[n] = torch.full(b.shape, 1.0 if n.endswith("running_var")
-                            else 0.0, device=dev)
+            out[n] = torch.full(t.shape, fill[n], device=dev)
     return out
+
+
+def reference_net(cfg: Dict, seed: int, dev):
+    """The configuration's reference module, its network on `dev` holding
+    the weights made from the seed, and those weights."""
+    ref = reference.of(cfg)
+    weights = make_weights(cfg, seed, dev)
+    net = ref.Net(cfg).to(dev)
+    load_weights(net, weights)
+    return ref, net, weights
 
 
 @torch.no_grad()
 def load_weights(module: torch.nn.Module, weights: Dict[str, torch.Tensor]):
-    """Copy weights into a module's parameters and buffers by name; every
-    name of the module must be there."""
+    """Copy weights into a module's parameters and buffers by name; the
+    module and the weights have the same names and shapes."""
     own = dict(module.named_parameters())
     own.update(dict(module.named_buffers()))
     missing = sorted(set(own) - set(weights))
-    if missing:
-        raise KeyError(f"no weights made for {missing[:5]}")
+    extra = sorted(set(weights) - set(own))
+    if missing or extra:
+        raise KeyError(f"no weights made for {missing[:5]}; weights made "
+                       f"for no leaf of the module: {extra[:5]}")
     for n, t in own.items():
+        if t.shape != weights[n].shape:
+            raise ValueError(f"{n}: the module's shape {tuple(t.shape)}, "
+                             f"the weights' {tuple(weights[n].shape)}")
         t.copy_(weights[n])
 
 

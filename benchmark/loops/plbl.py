@@ -25,7 +25,6 @@ import numpy as np
 import torch
 
 from benchmark import common, gen, yardstick
-from benchmark.reference import model as ref_model
 from benchmark.reference import plbl as ref_plbl
 
 SPANS = ("plbl.forward", "plbl.softmax", "plbl.k5", "plbl.pass1",
@@ -97,14 +96,13 @@ def reference_maps(cfg, seed, dev, sources, fp8=False) -> List[np.ndarray]:
     """The reference's (or, with fp8, the control's) maps of `sources`."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    net = ref_model.Net(cfg["num_outputs"]).to(dev).eval()
-    common.load_weights(net, common.make_weights(
-        cfg["num_outputs"], seed, dev, cfg["init"]))
-    ref_model.Quant.fp8 = fp8
+    ref, net, _ = common.reference_net(cfg, seed, dev)
+    net.eval()
+    ref.Quant.fp8 = fp8
     try:
         return [reference_map(net, s, cfg, dev) for s in sources]
     finally:
-        ref_model.Quant.fp8 = False
+        ref.Quant.fp8 = False
 
 
 def map_counts(got: np.ndarray, want: np.ndarray) -> List[int]:
@@ -158,8 +156,7 @@ def run(cell: Dict, cfg: Dict, mix: Dict, limits: Dict, seed: int,
         model = get_model(cfg["model"], cfg["num_outputs"],
                           cfg["output_stride"],
                           separable_conv=cfg["separable_conv"], device=dev)
-        common.load_weights(model, common.make_weights(
-            cfg["num_outputs"], seed, dev, cfg["init"]))
+        common.load_weights(model, common.make_weights(cfg, seed, dev))
         model.eval()
         gen_ = PseudoLabelGenerator(model, pcfg, cfg["plbl"]["type"],
                                     max_protos=cfg["plbl"]["max_protos"],

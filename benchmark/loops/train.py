@@ -24,8 +24,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from benchmark import common, gen, yardstick
-from benchmark.reference import model as ref_model
+from benchmark import common, gen, reference, yardstick
 from benchmark.reference import train as ref_train
 
 ADAM_B1 = 0.9
@@ -163,20 +162,17 @@ def reference_numbers(cfg, mix, seed, dev, batches, fp8=False,
     phases = phases or (lambda name: None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    weights = common.make_weights(cfg["num_outputs"], seed, dev,
-                                  cfg["init"])
-    net = ref_model.Net(cfg["num_outputs"]).to(dev)
-    common.load_weights(net, weights)
+    ref, net, weights = common.reference_net(cfg, seed, dev)
     drop = torch.Generator(device=dev).manual_seed(common.seed_of(seed, 2))
-    for d in ref_model.dropouts(net):
+    for d in ref.dropouts(net):
         d.generator = drop
     phases("reference network")
-    ref_model.Quant.fp8 = fp8
+    ref.Quant.fp8 = fp8
     try:
         losses, grads, first = ref_train.run_steps(
             net, batches, cfg[mix["stage"]], mix["stage"], dev)
     finally:
-        ref_model.Quant.fp8 = False
+        ref.Quant.fp8 = False
     names = [k for k, _ in net.named_parameters()]
     change = leaf_norms(p.detach() - weights[k]
                         for k, p in net.named_parameters())
@@ -225,8 +221,7 @@ def run(cell: Dict, cfg: Dict, mix: Dict, limits: Dict, seed: int,
     phases("imports")
     with ThreadPoolExecutor(max_workers=1) as pool:
         items = pool.submit(gen.make_items, seed, cfg, mix)
-        weights = common.make_weights(cfg["num_outputs"], seed, dev,
-                                      cfg["init"])
+        weights = common.make_weights(cfg, seed, dev)
         model, step, _ = build(cfg, mix, seed, dev, weights)
         del weights
         phases("model")
@@ -299,9 +294,10 @@ def run(cell: Dict, cfg: Dict, mix: Dict, limits: Dict, seed: int,
 
 def step_flops(cfg: Dict) -> float:
     """Model FLOPs of one training step, forward and backward, counted on
-    the reference network at the cell's shapes (meta tensors, no work)."""
+    the configuration's reference network at the cell's shapes (meta
+    tensors, no work)."""
     with torch.device("meta"):
-        net = ref_model.Net(cfg["num_outputs"])
+        net = reference.of(cfg).Net(cfg)
         x = torch.empty(cfg["batch"], 3, cfg["crop"], cfg["crop"])
         return flops_of(net, x)
 

@@ -1,7 +1,16 @@
-"""The plain reference of the recipe's network, DeepLabV3+ with the cosine
-(weight-normalised) head over a deep-stem ResNet-50 at output stride 16,
-separable convolutions in the head: plain torch operations in float32
-(the callers turn TF32 off), written from the architecture's description.
+"""The plain reference of the DeepLabV3+ networks with the cosine
+(weight-normalised) head over a ResNet, built from a configuration: plain
+torch operations in float32 (the callers turn TF32 off), written from the
+architecture's description.
+
+The configuration gives the shape. `widths`: `stem` (three 3x3
+convolutions when `model` names a deep stem, else one 7x7), `stage_planes`,
+`blocks`, `expansion`, `aspp_channels`, `aspp_rates`,
+`low_level_channels`, `decoder_channels`; `output_stride` 16 dilates stage
+4, 8 stages 3 and 4, the first block of a dilated stage at the previous
+dilation; `separable_conv` makes the head's 3x3 convolutions depthwise
+then pointwise, or dense; `model` names the head (`deeplabv3pluswn`) and
+the stem.
 
 Module names follow the reference torch model (and so the port's), so one
 dictionary of weights, made by the benchmark, loads into both by name.
@@ -18,6 +27,9 @@ straight through. The cosine head, as in the program, stays float32.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn as nn
@@ -139,9 +151,10 @@ def conv_bn_relu(cin, cout, k, dilation=1, separable=False, relu=True):
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, cin, planes, stride, dilation, downsample=False):
+    def __init__(self, cin, planes, stride, dilation, downsample=False,
+                 expansion=4):
         super().__init__()
-        out = planes * 4
+        out = planes * expansion
         self.conv1, self.bn1 = Conv(cin, planes, 1), BN(planes)
         self.conv2 = Conv(planes, planes, 3, stride, dilation)
         self.bn2 = BN(planes)
@@ -157,26 +170,62 @@ class Bottleneck(nn.Module):
         return F.relu(_fp8(y) if Quant.fp8 else y)
 
 
-class Backbone(nn.Module):
-    """ResNet-50 with the deep stem; layer 4 dilated (output stride 16),
-    its first block at the previous dilation."""
+# the stages (2, 3, 4) whose stride becomes a dilation, by output stride
+DILATED = {16: (False, False, True), 8: (False, True, True)}
+HEADS = ("deeplabv3pluswn",)
 
-    def __init__(self):
+
+def deep_stem(cfg: Dict) -> bool:
+    """Whether the stem is deep, from `model`
+    (`<head>_resnet<depth>[deepstem]`), whose head the reference has to
+    build; the depth is `widths.blocks`."""
+    head, _, backbone = cfg["model"].partition("_")
+    if head not in HEADS:
+        raise ValueError(f"configuration key 'model': {cfg['model']!r} "
+                         f"names the head {head!r}; the reference builds "
+                         f"{', '.join(HEADS)}")
+    if not backbone.startswith("resnet"):
+        raise ValueError(f"configuration key 'model': {cfg['model']!r} "
+                         f"names the backbone {backbone!r}; the reference "
+                         f"builds a ResNet")
+    return backbone.endswith("deepstem")
+
+
+class Backbone(nn.Module):
+    """A ResNet of bottleneck blocks; the stages that `output_stride`
+    dilates take dilation in place of stride, the first block of each at
+    the previous dilation."""
+
+    def __init__(self, cfg: Dict):
         super().__init__()
-        self.conv1 = nn.Sequential(Conv(3, 64, 3, 2), BN(64), nn.ReLU(),
-                                   Conv(64, 64, 3), BN(64), nn.ReLU(),
-                                   Conv(64, 128, 3))
-        self.bn1 = BN(128)
-        cin, dilation = 128, 1
-        for i, (planes, n) in enumerate(zip((64, 128, 256, 512),
-                                            (3, 4, 6, 3))):
+        w = cfg["widths"]
+        deep = deep_stem(cfg)
+        stem = w["stem"]
+        if len(stem) != (3 if deep else 1):
+            raise ValueError(f"configuration key 'widths.stem': {stem} for "
+                             f"{cfg['model']!r}")
+        if deep:
+            self.conv1 = nn.Sequential(
+                Conv(3, stem[0], 3, 2), BN(stem[0]), nn.ReLU(),
+                Conv(stem[0], stem[1], 3), BN(stem[1]), nn.ReLU(),
+                Conv(stem[1], stem[2], 3))
+        else:
+            self.conv1 = Conv(3, stem[0], 7, 2)
+        self.bn1 = BN(stem[-1])
+        if cfg["output_stride"] not in DILATED:
+            raise ValueError(f"configuration key 'output_stride': "
+                             f"{cfg['output_stride']}, not 8 or 16")
+        dilated = DILATED[cfg["output_stride"]]
+        exp = w["expansion"]
+        cin, dilation = stem[-1], 1
+        for i, (planes, n) in enumerate(zip(w["stage_planes"], w["blocks"])):
             stride, prev = (1, 2, 2, 2)[i], dilation
-            if i == 3:
+            if i > 0 and dilated[i - 1]:
                 dilation, stride = dilation * stride, 1
             blocks = [Bottleneck(cin, planes, stride, prev,
-                                 stride != 1 or cin != planes * 4)]
-            cin = planes * 4
-            blocks += [Bottleneck(cin, planes, 1, dilation)
+                                 stride != 1 or cin != planes * exp, exp)]
+            cin = planes * exp
+            blocks += [Bottleneck(cin, planes, 1, dilation, expansion=exp)
                        for _ in range(1, n)]
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
 
@@ -197,28 +246,36 @@ class Pooling(nn.Sequential):
 
 
 class ASPP(nn.Module):
-    def __init__(self, cin, rates=(6, 12, 18), cout=256):
+    def __init__(self, cin, rates, cout, separable):
         super().__init__()
         self.convs = nn.ModuleList(
             [conv_bn_relu(cin, cout, 1)]
-            + [conv_bn_relu(cin, cout, 3, r, separable=True) for r in rates]
+            + [conv_bn_relu(cin, cout, 3, r, separable=separable)
+               for r in rates]
             + [Pooling(cin, cout)])
-        self.project = nn.Sequential(*conv_bn_relu(5 * cout, cout, 1),
-                                     Dropout(0.1))
+        self.project = nn.Sequential(
+            *conv_bn_relu((len(rates) + 2) * cout, cout, 1), Dropout(0.1))
 
     def forward(self, x):
         return self.project(torch.cat([c(x) for c in self.convs], dim=1))
 
 
 class Head(nn.Module):
-    def __init__(self, num_outputs):
+    """The V3+ decoder with the cosine head: the low-level projection,
+    ASPP, two 3x3 blocks, logits against normalised class proxies."""
+
+    def __init__(self, cfg: Dict):
         super().__init__()
-        self.project = conv_bn_relu(256, 48, 1)
-        self.aspp = ASPP(2048)
+        w, sep = cfg["widths"], cfg["separable_conv"]
+        exp, planes = w["expansion"], w["stage_planes"]
+        low, mid = w["low_level_channels"], w["decoder_channels"]
+        self.project = conv_bn_relu(planes[0] * exp, low, 1)
+        self.aspp = ASPP(planes[-1] * exp, w["aspp_rates"],
+                         w["aspp_channels"], sep)
         self.classifier = nn.Sequential(
-            *conv_bn_relu(304, 256, 3, separable=True),
-            *conv_bn_relu(256, 256, 3, separable=True))
-        self.proxy = nn.Parameter(torch.empty(num_outputs, 256, 1, 1))
+            *conv_bn_relu(low + w["aspp_channels"], mid, 3, separable=sep),
+            *conv_bn_relu(mid, mid, 3, separable=sep))
+        self.proxy = nn.Parameter(torch.empty(cfg["num_outputs"], mid, 1, 1))
 
     def forward(self, low, out):
         low = self.project(low)
@@ -235,10 +292,10 @@ class Net(nn.Module):
     """forward(x) -> logits (B, N, H, W) at the input size; with
     return_feat, (features, logits), both upsampled."""
 
-    def __init__(self, num_outputs):
+    def __init__(self, cfg: Dict):
         super().__init__()
-        self.backbone = Backbone()
-        self.classifier = Head(num_outputs)
+        self.backbone = Backbone(cfg)
+        self.classifier = Head(cfg)
 
     def forward(self, x, return_feat=False):
         size = x.shape[-2:]
@@ -248,6 +305,30 @@ class Net(nn.Module):
         if return_feat:
             return up(feat), up(logits)
         return up(logits)
+
+
+def weight_rule(net: nn.Module, cfg: Dict
+                ) -> Tuple[List[Tuple[str, float]], Dict[str, float]]:
+    """The leaves drawn from the seed, in draw order, each with its
+    standard deviation: Kaiming-normal convolutions (fan_out in the
+    backbone, fan_in in the head) and class proxies (fan_in). The fill of
+    every other leaf: BN scale 1 (the last BN of each residual block at
+    init['residual_bn_scale']), bias 0, running mean 0 and variance 1."""
+    convs = {f"{n}.weight": m for n, m in net.named_modules()
+             if isinstance(m, Conv)}
+    drawn = []
+    for n, p in net.named_parameters():
+        if n in convs or n.endswith("proxy"):
+            o, i, kh, kw = p.shape
+            head = n.endswith("proxy") or convs[n].head
+            drawn.append((n, math.sqrt(2.0 / ((i if head else o) * kh * kw))))
+    res = float(cfg.get("init", {}).get("residual_bn_scale", 1.0))
+    picked = {n for n, _ in drawn}
+    fill = {n: 0.0 if n.endswith("bias") else (res if ".bn3." in n else 1.0)
+            for n, _ in net.named_parameters() if n not in picked}
+    fill.update({n: 1.0 if n.endswith("running_var") else 0.0
+                 for n, _ in net.named_buffers()})
+    return drawn, fill
 
 
 def dropouts(net: nn.Module):

@@ -7,6 +7,8 @@ import os
 
 import torch
 
+from benchmark import common
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -38,3 +40,15 @@ def cell(name):
 
 
 CPU = torch.device("cpu")
+
+
+def pair(cfg, seed=3):
+    """The port's model and the configuration's reference network on the
+    CPU, both holding the weights made from the seed."""
+    from mulactseg_tpu_torch.models.factory import get_model
+
+    _, ref, w = common.reference_net(cfg, seed, CPU)
+    port = get_model(cfg["model"], cfg["num_outputs"], cfg["output_stride"],
+                     separable_conv=cfg["separable_conv"], device="cpu")
+    common.load_weights(port, w)
+    return port, ref

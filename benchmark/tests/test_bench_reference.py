@@ -20,26 +20,12 @@ import pytest
 import torch
 
 import bench_tiny
-from benchmark import common, gen, rules
+from benchmark import gen, rules
 from benchmark.loops import train
-from benchmark.reference import model as ref_model
 from benchmark.reference import plbl as ref_plbl
 from benchmark.reference import train as ref_train
 
 torch.set_num_threads(2)
-
-
-def _pair(cfg, seed=3):
-    from mulactseg_tpu_torch.models.factory import get_model
-
-    w = common.make_weights(cfg["num_outputs"], seed, bench_tiny.CPU,
-                            cfg["init"])
-    port = get_model(cfg["model"], cfg["num_outputs"], 16,
-                     separable_conv=True, device="cpu")
-    common.load_weights(port, w)
-    ref = ref_model.Net(cfg["num_outputs"])
-    common.load_weights(ref, w)
-    return port, ref
 
 
 def _batch(name, seed=3):
@@ -54,7 +40,7 @@ def test_forward_and_lossdecomp_match_the_port(name):
     from mulactseg_tpu_torch.engine.train import get_criterion
 
     cfg, mix, batch = _batch(name)
-    port, ref = _pair(cfg)
+    port, ref = bench_tiny.pair(cfg)
     port.eval(), ref.eval()
     x = torch.as_tensor(batch["images"])
     with torch.no_grad():
@@ -76,7 +62,7 @@ def test_gradient_matches_the_port():
     from mulactseg_tpu_torch.engine.train import get_criterion
 
     cfg, mix, batch = _batch("city_stage1")
-    port, ref = _pair(cfg)
+    port, ref = bench_tiny.pair(cfg)
     port.eval(), ref.eval()
     x = torch.as_tensor(batch["images"])
     keys = {k: torch.as_tensor(batch[k])
@@ -96,7 +82,7 @@ def test_adamw_poly_update_matches_the_port(step):
     from mulactseg_tpu_torch.engine.state import make_optimizer, set_lr
 
     cfg, _, _ = _batch("city_stage1")
-    port, ref = _pair(cfg)
+    port, ref = bench_tiny.pair(cfg)
     s = cfg["stage1"]
     opt = make_optimizer(port, train.port_config(cfg, s, 0))
     mine = ref_train.AdamW(ref.named_parameters(), s, start=step)
