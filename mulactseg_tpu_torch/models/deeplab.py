@@ -59,6 +59,23 @@ class ASPP(nn.Module):
         return self.project(torch.cat([c(x) for c in self.convs], dim=1))
 
 
+def cosine_logits(y, proxy):
+    """The weight-normalised (cosine) head: (features, logits) of y (B, C,
+    H, W) against class proxies (N, C, 1, 1), the features L2-normalised
+    over C and the logits their product with the normalised proxies, both
+    in float32 whatever the autocast (deeplab.py:114-125). The eps sits
+    INSIDE the sqrt."""
+    with torch.autocast(y.device.type, enabled=False):
+        y32 = y.float()
+        feat = y32 / torch.sqrt(
+            torch.sum(y32 * y32, dim=1, keepdim=True) + 1e-12)
+        proxy = proxy.float()
+        proxy_n = proxy / torch.sqrt(
+            torch.sum(proxy * proxy, dim=1, keepdim=True) + 1e-12)
+        logits = torch.einsum("bchw,nc->bnhw", feat, proxy_n[:, :, 0, 0])
+    return feat, logits
+
+
 class DeepLabHeadV3Plus(nn.Module):
     """variant: 'plain' (one 3x3 block + biased final), 'c1' (two
     blocks), 'wn' (two blocks + cosine final against class proxies)."""
@@ -93,18 +110,7 @@ class DeepLabHeadV3Plus(nn.Module):
         y = resize_bilinear(y, low.shape[-2:])
         y = self.classifier(torch.cat([low, y], dim=1))
         if self.variant == "wn":
-            # cosine logits; normalisation and the proxy product run in
-            # float32 (deeplab.py:114-125). The eps sits INSIDE the sqrt.
-            with torch.autocast(y.device.type, enabled=False):
-                y32 = y.float()
-                feat = y32 / torch.sqrt(
-                    torch.sum(y32 * y32, dim=1, keepdim=True) + 1e-12)
-                proxy = self.proxy.float()
-                proxy_n = proxy / torch.sqrt(
-                    torch.sum(proxy * proxy, dim=1, keepdim=True) + 1e-12)
-                logits = torch.einsum("bchw,nc->bnhw", feat,
-                                      proxy_n[:, :, 0, 0])
-            point_feature = feat
+            point_feature, logits = cosine_logits(y, self.proxy)
         else:
             logits = self.final(y)
             point_feature = y

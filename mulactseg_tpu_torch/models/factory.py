@@ -1,7 +1,12 @@
 """Model factory, the port of mulactseg_tpu/models/factory.py: OS8 dilates
 layers 3+4 with ASPP rates (12, 24, 36); OS16 dilates layer 4 with
 (6, 12, 18). MobileNetV2 takes the same rates (factory.py:49-53);
-separable convolutions apply to the V3+ heads only."""
+separable convolutions apply to the V3+ heads only.
+
+MODEL_NAMES are the networks held to the JAX package's; PORT_NAMES are
+the port's alone, held to the benchmark's plain reference
+(benchmark/reference/): SegFormer-B5 with the cosine head
+(models/segformer.py), at its only output stride, 32."""
 
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ import torch.nn as nn
 
 from mulactseg_tpu_torch.device import resolve_device
 from mulactseg_tpu_torch.models import resnet as _resnet
+from mulactseg_tpu_torch.models import segformer as _segformer
 from mulactseg_tpu_torch.models.deeplab import (
     DeepLabHeadV2,
     DeepLabHeadV3,
@@ -29,6 +35,7 @@ MODEL_NAMES = (
     "deeplabv3pluswn_resnet101deepstem", "deeplabv3pluswn_resnet50",
     "deeplabv3plus_resnet50deepstem", "deeplabv3plus_resnet101deepstem",
 )
+PORT_NAMES = ("segformerwn_mitb5",)
 _HEAD_VARIANT = {"deeplabv3plus": "plain", "deeplabv3plusc1": "c1",
                  "deeplabv3pluswn": "wn"}
 
@@ -58,9 +65,18 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def get_model(model: str, num_classes: int, output_stride: int = 16,
               separable_conv: bool = False, device="cuda",
               generator: Optional[torch.Generator] = None) -> DeepLabV3:
-    """Build one of MODEL_NAMES on `device` with weights drawn from
-    `generator` (a CPU torch.Generator; seed 0 when None). Parameters are
-    float32; logits come back float32 NCHW."""
+    """Build one of MODEL_NAMES or PORT_NAMES on `device` with weights
+    drawn from `generator` (a CPU torch.Generator; seed 0 when None).
+    Parameters are float32; logits come back float32 NCHW."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if model in PORT_NAMES:
+        if output_stride != 32:
+            raise ValueError(f"{model} has output stride 32 only, not "
+                             f"{output_stride}")
+        net = _segformer.segformer(num_classes)
+        _segformer.init_weights(net, generator)
+        return net.to(resolve_device(device))
     if model not in MODEL_NAMES:
         raise ValueError(f"unknown model {model!r}")
     arch, backbone_name = model.split("_", 1)
@@ -81,7 +97,5 @@ def get_model(model: str, num_classes: int, output_stride: int = 16,
     else:
         head = DeepLabHeadV2(cin, num_classes)
     net = DeepLabV3(backbone, head)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
     init_weights(net, generator)
     return net.to(dev)

@@ -107,12 +107,18 @@ def bn_frozen(model: nn.Module, flag: bool):
 class Dropout(nn.Module):
     """Dropout whose mask comes from an explicit torch.Generator
     (`generator`, set by the train step; None draws from torch's default
-    generator). Identity in eval mode or at p == 0."""
+    generator). Identity in eval mode or at p == 0. The mask has one
+    draw per element; a subclass draws fewer (`drawn`), each kept or
+    dropped whole."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
         self.generator = None
+
+    def drawn(self, x) -> tuple:
+        """The mask's shape for one row of x, broadcast over the row."""
+        return tuple(x.shape[1:])
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
@@ -120,11 +126,27 @@ class Dropout(nn.Module):
         # under data parallelism every rank draws the global batch's mask
         # and keeps its own rows, so the masks are those of one rank
         w = mesh.world()
-        keep = torch.rand((x.shape[0] * w,) + tuple(x.shape[1:]),
+        keep = torch.rand((x.shape[0] * w,) + self.drawn(x),
                           generator=self.generator, device=x.device) >= self.p
         if w > 1:
             keep = keep[mesh.local_rows(keep.shape[0])]
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+class DropPath(Dropout):
+    """Stochastic depth: a residual branch (B, ...) kept or dropped whole
+    for each sample, one draw a row (timm's drop_path)."""
+
+    def drawn(self, x) -> tuple:
+        return (1,) * (x.dim() - 1)
+
+
+class Dropout2d(Dropout):
+    """Channel-wise dropout of (B, C, H, W): each channel of each sample
+    kept or dropped whole (nn.Dropout2d)."""
+
+    def drawn(self, x) -> tuple:
+        return (x.shape[1], 1, 1)
 
 
 class SeparableConv(nn.Module):

@@ -13,7 +13,11 @@ entry point returns cudaGetLastError(); `check` raises on a non-zero code.
 slowest file's compile rather than the sum.
 
 The launch counters live here too: each wrapper adds one to its kernel's
-count where it launches the kernel, and nowhere else.
+count where it launches the kernel, and nowhere else. The attention of
+models/segformer.py adds `sdpa` (one a call of
+F.scaled_dot_product_attention) and the products a bound needs,
+`sdpa.bhnmd` (B h N M d: B h N queries of width d against M keys) and
+`sdpa.bhnpmd` (B h (N + M) d), on every device.
 """
 
 from __future__ import annotations

@@ -28,6 +28,10 @@ The spans and the layers they time:
   .softmax, .k5, .pass1,
   .threshold, .pass2, .fetch,
   .save
+  model.stage1 .. .stage4,        models/segformer.py: each stage of the
+  model.decode                    backbone and the decoder, the caller's
+                                  thread; five a forward, eager, captured
+                                  or in evaluation and pseudo-labelling
 """
 
 from __future__ import annotations

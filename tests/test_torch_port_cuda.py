@@ -1441,3 +1441,52 @@ def test_graph_capture_failure_leaves_the_step_eager(dev, caplog):
     assert sum("capture failed" in r.getMessage()
                for r in caplog.records) == 1
     assert step.step == 4 and np.isfinite(losses).all()
+
+
+def test_segformer_step_replays(dev):
+    """SegFormer-B5 (models/segformer.py) at full width through the graphed
+    step, on the bf16 fixture's batches (96 x 96, nseg 24, uint8 images):
+    step 1 eager, step 2 captured and replayed, the rest replayed; each
+    step launches K1-K4 once and the attention once a block (52, on a
+    flash, cuDNN or efficient kernel: models/segformer.attention refuses
+    the math backend), the capture adds nothing; every loss finite and
+    its own, and nearly every leaf moves (a bias in front of a BN may
+    keep a gradient of zero)."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from mulactseg_tpu_torch.config import Config
+    from mulactseg_tpu_torch.engine.train import make_train_step
+    from mulactseg_tpu_torch.models.factory import get_model
+    from mulactseg_tpu_torch.utils import spans
+
+    cfg = dataclasses.replace(Config(**cs.bf16_config_kw("full")),
+                              model="segformerwn_mitb5", output_stride=32)
+    rng = np.random.RandomState(3)
+    batches = []
+    for i in range(GRAPH_STEPS):
+        b = dict(cs.bf16_inputs("full")[0][i % cs.BF16_STEPS])
+        b["images"] = rng.randint(0, 256, b["images"].shape).astype(np.uint8)
+        batches.append(b)
+    model = get_model(cfg.model, cfg.num_model_classes, 32, device=dev)
+    step = make_train_step(model, cfg, device=dev,
+                           generator=torch.Generator(dev).manual_seed(7))
+    start = [p.detach().clone() for p in model.parameters()]
+    once = dict({k: 1 for k in cs.STAGE1_KERNELS}, sdpa=52)
+    want = [{"train.eager": 1, "train.capture": 0, "train.replay": 0},
+            {"train.eager": 0, "train.capture": 1, "train.replay": 1}] + \
+        [{"train.eager": 0, "train.capture": 0, "train.replay": 1}] * (
+            GRAPH_STEPS - 2)
+    losses = []
+    for b, w in zip(batches, want):
+        before = spans.snapshot()
+        _build.reset_launches()
+        losses.append(step(b)["train_loss"])
+        torch.cuda.synchronize()
+        got = dict(_build.LAUNCHES)
+        assert {k: got.get(k) for k in once} == once, w
+        assert _span_counts(before) == w
+    vals = [float(v) for v in losses]
+    assert np.isfinite(vals).all() and len(set(vals)) == GRAPH_STEPS
+    moved = [not torch.equal(p, s) for p, s in zip(model.parameters(), start)]
+    assert sum(moved) >= 0.95 * len(moved)
