@@ -51,8 +51,23 @@
 5. Drives the main path: make_train_step at nseg 2048 for 3 warm-up and 20
    timed steps (4 windows of 5 steps, each timed to a synchronise at its
    end), with every launch counter set to 0 just before and read just
-   after; K1-K4 must have launched exactly once per step, and the loss and
-   its three parts must be finite.
+   after; K1-K4 must have launched exactly once per step (and each BN
+   kernel once a BN and step), and the loss and its three parts must be
+   finite.
+5a. FastBatchNorm's training pass (bn_slice): at each BN shape of
+   city_stage1 and voc_stage1 and at SegFormer-B5's channels-last one
+   (BN_CELLS) in bf16, the six kernels of csrc/batch_norm.cu (BN1-BN6,
+   one launch each) held against the float64 function and the plain
+   version (y, the running statistics, dx, dw and db within
+   BN_BF16_EXACT and BN_BF16_PLAIN of their operands' magnitude); then
+   forward and backward through the kernels, the plain version and
+   F.batch_norm (cuDNN, a yardstick the port never calls), each as CUDA
+   graph replays; summed over a step's BNs, each kernel's ms
+   (torch.profiler over replays) beside its bound and the whole pass's
+   ms, bound, plain and cuDNN ms, and the largest errors: the bn line.
+   Every launch check of a main path in this script counts the BN
+   kernels too: each once a FastBatchNorm in each train-mode forward and
+   backward (bn_launches), none in eval mode.
 6. The same at nseg 4096 from the seeded weights again: 2 warm-up and 10
    timed steps; K1, K2, K6, K5 and K4 once per step, K3 never.
 7. One autograd pass through each row-major op on those rows, counted:
@@ -387,7 +402,8 @@
    profile/rank0.round01.pt.trace.json, is read back: it must hold
    device spans, every __global__ kernel that K1-K4 launch
    (COUNTER_KERNELS, by the launch counters' accounting) exactly once a
-   step, and the losses must be finite. Its line: the device busy ms a
+   step and each BN kernel once a BN and step, and the losses must be
+   finite. Its line: the device busy ms a
    step and the idle share of the traced window (from the trace's
    kernel, copy and memset spans), the 10 host ops with the most self
    time, the profiler's stop and export seconds, the file's MB.
@@ -408,7 +424,10 @@ kernel's check and times (K5 eight times: at plbl's shapes, on K6's
 planes, on a VOC plbl image, at the group term's instance, on the async
 weak view and over its fine map, at the sliding pseudo-labeller's and at
 the probe's instance; K1-K4 twice: at Cityscapes' and VOC's stage-1
-shapes), its launches on each main path (launches_by_path) and their sum
+shapes; BN1-BN6 three times: at city_stage1's, voc_stage1's and
+SegFormer-B5's BN shapes, summed over a step, each with the largest
+error of the outputs it writes, relative to their operands), its
+launches on each main path (launches_by_path) and their sum
 (launches); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero; there is no CPU fallback.
@@ -419,6 +438,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import hashlib
 import json
 import math
@@ -644,7 +664,10 @@ BF16_TOL = {
 COUNTER_KERNELS = {"pixel_ce_fwd": ("pixel_ce_fwd_kernel",),
                    "pixel_ce_bwd": ("pixel_ce_bwd_kernel",),
                    "ssm_fwd": ("ssm_span_kernel", "ssm_decode_kernel"),
-                   "ssm_bwd": ("ssm_bwd_kernel",)}
+                   "ssm_bwd": ("ssm_bwd_kernel",),
+                   **{k: (f"{k}_kernel",) for k in (
+                       "bn_stats", "bn_finalize", "bn_apply", "bn_bwd_stats",
+                       "bn_bwd_finalize", "bn_dx")}}
 TIMING_RUNS, REPEATS = 20, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -670,6 +693,13 @@ KERNELS = {
                           "mulactseg_tpu/ops/pixel_loss_pallas.py:94"),
     "pixel_ce_rows_bwd": ("K10", "mulactseg_tpu_torch/csrc/pixel_loss.cu",
                           "mulactseg_tpu/ops/pixel_loss_pallas.py:130"),
+    # FastBatchNorm's training pass: no pallas_call, the JAX package
+    # leaves it to XLA
+    **{k: (f"BN{i + 1}", "mulactseg_tpu_torch/csrc/batch_norm.cu",
+           "no pallas_call; FastBatchNorm (mulactseg_tpu/models/layers.py) "
+           "was left to XLA")
+       for i, k in enumerate(("bn_stats", "bn_finalize", "bn_apply",
+                              "bn_bwd_stats", "bn_bwd_finalize", "bn_dx"))},
 }
 STAGE1_KERNELS = ("pixel_ce_fwd", "pixel_ce_bwd", "ssm_fwd", "ssm_bwd")
 STAGE1_LARGE_KERNELS = ("pixel_ce_fwd", "pixel_ce_bwd", "prereduce_nchw",
@@ -1576,9 +1606,10 @@ def zoo_slice(dev, smi, batches):
         losses, window_s, sizes = run_steps(step, batches, ZOO_WARMUP,
                                             ZOO_TIMED)
         got = dict(_build.LAUNCHES)
-        check(got == {k: steps for k in STAGE1_KERNELS},
-              f"{name}: launches {got}, want each of {STAGE1_KERNELS} "
-              f"{steps} times")
+        want = {**{k: steps for k in STAGE1_KERNELS},
+                **bn_launches(model, steps)}
+        check(got == want, f"{name}: launches {got}, want {want} (K1-K4 "
+              "once a step, each BN kernel once a BN and step)")
         check(all(math.isfinite(v) for v in losses.values()),
               f"{name}: non-finite loss {losses}")
         check(err <= ZOO_EVAL_RTOL,
@@ -1884,7 +1915,8 @@ def run_criterion(model, variables, dev, case, method, over, k5, batches,
     losses, window_s, sizes = run_steps(step, bs, warmup, timed)
     got = dict(_build.LAUNCHES)
     steps = warmup + timed
-    want = {"seg_max_fwd": k5 * B * steps} if k5 else {}
+    want = {**({"seg_max_fwd": k5 * B * steps} if k5 else {}),
+            **bn_launches(model, steps)}
     check(got == want, f"criterion {case}: launches {got}, want {want}")
     check(all(math.isfinite(v) for v in losses.values()),
           f"criterion {case}: non-finite loss {losses}")
@@ -2171,6 +2203,294 @@ def profile_steps(step, batches, label, n=3, top=25):
         print(f"  {t / n / 1e3:9.3f} ms/step  {name[:110]}")
 
 
+# the distinct BN input shapes of the recipe's network in city_stage1
+# (batch 4, 768^2) and voc_stage1 (batch 12, 513^2), and how many of a
+# step's 64 BNs take each (forward hooks on models/factory.get_model)
+BN_CELLS = {
+    "city": (((4, 48, 192, 192), 1), ((4, 64, 384, 384), 2),
+             ((4, 64, 192, 192), 6), ((4, 128, 384, 384), 1),
+             ((4, 128, 192, 192), 1), ((4, 128, 96, 96), 7),
+             ((4, 256, 192, 192), 6), ((4, 256, 96, 96), 1),
+             ((4, 256, 48, 48), 16), ((4, 256, 1, 1), 1),
+             ((4, 512, 96, 96), 5), ((4, 512, 48, 48), 6),
+             ((4, 1024, 48, 48), 7), ((4, 2048, 48, 48), 4)),
+    "voc": (((12, 48, 129, 129), 1), ((12, 64, 257, 257), 2),
+            ((12, 64, 129, 129), 6), ((12, 128, 257, 257), 1),
+            ((12, 128, 129, 129), 1), ((12, 128, 65, 65), 7),
+            ((12, 256, 129, 129), 6), ((12, 256, 65, 65), 1),
+            ((12, 256, 33, 33), 16), ((12, 256, 1, 1), 1),
+            ((12, 512, 65, 65), 5), ((12, 512, 33, 33), 6),
+            ((12, 1024, 33, 33), 7), ((12, 2048, 33, 33), 4)),
+    # city_segformer_b5_stage1's one BN, channels-last as the decoder
+    # hands it over
+    "segformer": (((4, 768, 256, 256), 1),)}
+BN_CHANNELS_LAST = ("segformer",)
+# bytes a bf16 element costs each full-tensor BN kernel, its inputs read
+# and its outputs written once: x; x and y; x and dy; x, dy and dx
+BN_BYTES = {"bn_stats": 2, "bn_apply": 4, "bn_bwd_stats": 4, "bn_dx": 6}
+# the outputs of the training pass that each BN kernel writes or alone
+# feeds: its error in the kernels line is theirs
+BN_OUTPUTS = {"bn_stats": ("rm", "rv"), "bn_finalize": ("rm", "rv"),
+              "bn_apply": ("y",), "bn_bwd_stats": ("dw", "db"),
+              "bn_bwd_finalize": ("dw", "db"), "bn_dx": ("dx",)}
+
+
+def n_bn(model):
+    """The FastBatchNorms of `model`: a module, or a name of
+    models/factory (built on the CPU with separable convolutions, as
+    every model here is)."""
+    from mulactseg_tpu_torch.models.layers import FastBatchNorm
+
+    if isinstance(model, str):
+        return _n_bn_named(model)
+    return sum(isinstance(m, FastBatchNorm) for m in model.modules())
+
+
+@functools.lru_cache(maxsize=None)
+def _n_bn_named(name):
+    from mulactseg_tpu_torch.models.factory import get_model
+
+    return n_bn(get_model(name, NUM_CLASSES, 16, separable_conv=True,
+                          device="cpu"))
+
+
+def bn_launches(model, fwd, bwd=None):
+    """The BN kernels' launches (ops/batch_norm.KERNELS, three forward and
+    three backward) on the card of `fwd` train-mode forwards and `bwd`
+    (default `fwd`) backwards of `model` (n_bn's argument): each kernel
+    once a FastBatchNorm and pass, none where that makes 0. Eval-mode
+    forwards launch none."""
+    from mulactseg_tpu_torch.ops import batch_norm
+
+    n = n_bn(model)
+    bwd = fwd if bwd is None else bwd
+    counts = zip(batch_norm.KERNELS, [n * fwd] * 3 + [n * bwd] * 3)
+    return {k: v for k, v in counts if v}
+
+
+def bn_inputs(dev, shape, dtype, seed, offset=0, rows=False):
+    """x ~ N(mu_c, s_c^2) with mu_c in [-1, 1], s_c in [0.5, 2] and channel
+    0 constant 1.5 (v = 0 exactly in float32: its sums are exact), a
+    N(0, 1) cotangent, scale, bias and running statistics; with `offset`
+    x is a contiguous view that many elements into a larger storage (not
+    16-byte aligned, the kernels' scalar path); with `rows` x and the
+    cotangent are channels-last."""
+    g = torch.Generator(dev).manual_seed(seed)
+    N, C, H, W = shape
+    scale = torch.rand(1, C, 1, 1, generator=g, device=dev) * 1.5 + 0.5
+    mean = torch.rand(1, C, 1, 1, generator=g, device=dev) * 2.0 - 1.0
+    x = torch.randn(shape, generator=g, device=dev) * scale + mean
+    x[:, 0] = 1.5
+    big = torch.empty(x.numel() + offset, device=dev, dtype=dtype)
+    big[offset:] = x.reshape(-1)
+    x = big[offset:].view(shape)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    if rows:
+        x = x.contiguous(memory_format=torch.channels_last)
+        dy = dy.contiguous(memory_format=torch.channels_last)
+    return (x, dy, torch.rand(C, generator=g, device=dev) + 0.5,
+            torch.rand(C, generator=g, device=dev) * 0.4 - 0.2,
+            torch.rand(C, generator=g, device=dev) - 0.5,
+            torch.rand(C, generator=g, device=dev) * 1.5 + 0.5)
+
+
+def bn_run(fn, x, dy, w, b, rm, rv):
+    """fn's output, gradients and running statistics, from copies."""
+    xs = x.detach().requires_grad_(True)
+    ws, bs = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    rms, rvs = rm.clone(), rv.clone()
+    y = fn(xs, ws, bs, rms, rvs, 0.1, 1e-5)
+    y.backward(dy)
+    return {"y": y.detach(), "dx": xs.grad, "dw": ws.grad, "db": bs.grad,
+            "rm": rms, "rv": rvs}
+
+
+def bn_exact(x, dy, w, b, rm, rv):
+    """The training pass in float64 on the same inputs (a and b not
+    rounded), and each output's operand magnitude: |x a| + |beta| + |m a|
+    for y (b = beta - m a); |dy a| + (|a dB| + 2 |m dv|) / n + |k2 x| for
+    dx (dx = dy a + k1 + k2 x, k1 = (-a dB - 2 m dv) / n and k2 = 2 dv / n
+    from the clamped variance's gradient dv); the sums of |dy x| and
+    |m dy| times r for dw, of |dy| for db; the update's terms for the
+    running statistics."""
+    x, dy, w, b = x.double(), dy.double(), w.double(), b.double()
+    d, n = (0, 2, 3), x[:, 0].numel()
+    m = x.sum(d) / n
+    vr = (x * x).sum(d) / n - m * m
+    r = 1.0 / torch.sqrt(vr.clamp(min=0.0) + 1e-5)
+    a = w * r
+    bb = b - m * a
+    dB, dA = dy.sum(d), (dy * x).sum(d)
+    dv = torch.where(vr >= 0, -0.5 * (dA - m * dB) * w * r ** 3,
+                     torch.zeros_like(r))
+    k1, k2 = (-a * dB - 2.0 * m * dv) / n, 2.0 * dv / n
+
+    def c(t):
+        return t[None, :, None, None]
+
+    exact = {"y": x * c(a) + c(bb), "dx": dy * c(a) + c(k1) + c(k2) * x,
+             "dw": (dA - m * dB) * r, "db": dB,
+             "rm": 0.9 * rm.double() + 0.1 * m,
+             "rv": 0.9 * rv.double() + 0.1 * vr.clamp(min=0.0)}
+    mag = {"y": x.abs() * c(a.abs()) + c(b.abs() + (m * a).abs()),
+           "dx": dy.abs() * c(a.abs()) + c(k2.abs()) * x.abs()
+           + c(((a * dB).abs() + 2.0 * (m * dv).abs()) / n),
+           "dw": ((dy * x).abs().sum(d) + m.abs() * dy.abs().sum(d)) * r,
+           "db": dy.abs().sum(d),
+           "rm": 0.9 * rm.double().abs() + 0.1 * x.abs().sum(d) / n,
+           "rv": 0.9 * rv.double().abs() + 0.1 * (x * x).sum(d) / n}
+    return exact, mag
+
+
+def rel_err(got, want, mag):
+    """The largest error relative to its operands' magnitude."""
+    return float(((got.double() - want.double()).abs() / mag).max())
+
+
+# float32 sums of up to 2.4M terms in another order: each within ~1e-5
+# of the sum of its terms' magnitudes (both sides add runs of hundreds of
+# terms in a thread before a tree), and v = E[x^2] - m^2 amplifies that
+# by (E[x^2] + 2 |m| E|x|) / v, at most ~10 on these inputs (|mean| <= 1,
+# std >= 0.5): 1e-4 of the operands, three times the largest reading on
+# an H100 (3.1e-5)
+BN_F32_TOL = 1e-4
+# bf16, against the exact function: the kernels round a and b to bf16 and
+# the result once, half a bf16 ulp (2^-8) each, so y and dx lie within
+# 2^-7 (1 + 2^-8) of their operands' magnitude, plus the float32 sums'
+# BN_F32_TOL; dw, db and the statistics are float32 sums of the bf16
+# inputs. Against the plain version, which also rounds the product apart
+# from the sum (within 4 half ulps of the exact y): y within 6 half ulps;
+# dw within 2^-7 and db within 2^-8 (its gradient rounds each dy x and
+# both sums to bf16); the statistics as in float32. The plain version's dx
+# is not compared: its bf16 sums feed the variance's gradient, which
+# amplifies them (7% of the operands on these inputs).
+BN_BF16_EXACT = {"y": 2.0 ** -7 * (1 + 2.0 ** -8) + BN_F32_TOL,
+                 "dx": 2.0 ** -7 * (1 + 2.0 ** -8) + BN_F32_TOL,
+                 "dw": BN_F32_TOL, "db": BN_F32_TOL, "rm": BN_F32_TOL,
+                 "rv": BN_F32_TOL}
+BN_BF16_PLAIN = {"y": 6 * 2.0 ** -8 * (1 + 2.0 ** -8) + BN_F32_TOL,
+                 "dw": 2.0 ** -7 * (1 + 2.0 ** -8) + BN_F32_TOL,
+                 "db": 2.0 ** -8 + BN_F32_TOL, "rm": BN_F32_TOL,
+                 "rv": BN_F32_TOL}
+
+
+def bn_slice(dev):
+    """FastBatchNorm's training pass at each BN shape of city_stage1,
+    voc_stage1 and city_segformer_b5_stage1 (BN_CELLS) in bf16, on
+    bn_inputs' tensors. Held: the six kernels
+    (ops/batch_norm.batch_norm_train, one launch each) give y, the
+    running statistics and dx, dw, db of one backward (bn_run) within
+    BN_BF16_EXACT of the float64 function (bn_exact) and within
+    BN_BF16_PLAIN of the plain version (batch_norm_plain, fed copies of
+    the same running statistics), relative to their operands' magnitude
+    (rel_err). Timed, forward and backward (torch.autograd.grad, so no
+    accumulation), each as CUDA graph replays (time_ms): the kernels
+    (their split by torch.profiler over replays), the plain version and,
+    as a yardstick the port never calls, F.batch_norm (cuDNN). Summed
+    over a step's BNs (64, SegFormer's one): ms per kernel beside its
+    bound (BN_BYTES; the two finalize kernels at their partials and
+    per-channel values), and the whole pass's ms, bound, plain and cuDNN
+    ms; the largest errors. Returns (the bn line, the kernels line's rows:
+    each kernel in each cell, its error the largest of the outputs of
+    BN_OUTPUTS)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from mulactseg_tpu_torch.ops import _build, batch_norm
+
+    def grads(fn, x, w, b, rm, rv, dy):
+        y = fn(x, w, b, rm, rv)
+        return torch.autograd.grad(y, (x, w, b), dy)
+
+    paths = {
+        "kernels": lambda x, w, b, rm, rv: batch_norm.batch_norm_train(
+            x, w, b, rm, rv, 0.1, 1e-5),
+        "plain": lambda x, w, b, rm, rv: batch_norm.batch_norm_plain(
+            x, w, b, rm, rv, 0.1, 1e-5),
+        "cudnn": lambda x, w, b, rm, rv: F.batch_norm(
+            x, rm, rv, w, b, True, 0.1, 1e-5)}
+    out, rows = {}, []
+    for cell, shapes in BN_CELLS.items():
+        ms = {k: 0.0 for k in paths}
+        per_kernel = {k: 0.0 for k in batch_norm.KERNELS}
+        bound = {k: 0.0 for k in batch_norm.KERNELS}
+        err = {"exact": {}, "plain": {}}
+        elements = 0
+        for i, (shape, count) in enumerate(shapes):
+            N, C, H, W = shape
+            rows_layout = cell in BN_CHANNELS_LAST
+            args = bn_inputs(dev, shape, torch.bfloat16, 26 + i,
+                             rows=rows_layout)
+            _build.reset_launches()
+            got = bn_run(batch_norm.batch_norm_train, *args)
+            torch.cuda.synchronize()
+            check(dict(_build.LAUNCHES) == {k: 1 for k in batch_norm.KERNELS},
+                  f"bn {shape}: launches {dict(_build.LAUNCHES)}")
+            plain = bn_run(batch_norm.batch_norm_plain, *args)
+            exact, mag = bn_exact(*args)
+            for k, t in got.items():
+                e = rel_err(t, exact[k], mag[k])
+                check(bool(torch.isfinite(t).all()) and e <= BN_BF16_EXACT[k],
+                      f"bn {cell} {shape}: {k} off the float64 function by "
+                      f"{e} of its operands (at most {BN_BF16_EXACT[k]})")
+                err["exact"][k] = max(err["exact"].get(k, 0.0), e)
+                if k in BN_BF16_PLAIN:
+                    e = rel_err(t, plain[k], mag[k])
+                    check(e <= BN_BF16_PLAIN[k],
+                          f"bn {cell} {shape}: {k} off the plain version by "
+                          f"{e} of its operands (at most {BN_BF16_PLAIN[k]})")
+                    err["plain"][k] = max(err["plain"].get(k, 0.0), e)
+            del got, plain, exact, mag
+            x, dy, w, b, rm, rv = args
+            x = x.detach().requires_grad_(True)
+            w, b = w.requires_grad_(True), b.requires_grad_(True)
+            for name, fn in paths.items():
+                ms[name] += count * time_ms(
+                    lambda fn=fn: grads(fn, x, w, b, rm, rv, dy), graph=True)
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                graph.capture_begin()
+                grads(paths["kernels"], x, w, b, rm, rv, dy)
+                graph.capture_end()
+            torch.cuda.current_stream().wait_stream(side)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(REPEATS):
+                    graph.replay()
+                torch.cuda.synchronize()
+            for s0, e0, name in device_spans(prof)[0]:
+                k = re.search(r"(bn_\w+?)_kernel", name)
+                if k and k.group(1) in per_kernel:
+                    per_kernel[k.group(1)] += count * (e0 - s0) / 1e3 / REPEATS
+            splits = batch_norm._reduction(
+                x, rows_layout, torch.cuda.get_device_properties(
+                    dev).multi_processor_count)[0]
+            small = {"bn_finalize": (2 * splits * C + 6 * C + 6 * C) * 4,
+                     "bn_bwd_finalize": (4 * splits * C + 9 * C) * 4}
+            for k in batch_norm.KERNELS:
+                nbytes = BN_BYTES[k] * x.numel() if k in BN_BYTES \
+                    else small[k]
+                bound[k] += count * nbytes / HBM_BYTES_PER_S * 1e3
+            elements += count * x.numel()
+            del x, dy, args, graph
+        whole = 16 * elements / HBM_BYTES_PER_S * 1e3
+        out[cell] = {
+            "elements_per_step": elements,
+            "kernels_ms_per_step": per_kernel,
+            "kernels_bound_ms_per_step": bound,
+            "pass_ms_per_step": ms["kernels"], "pass_bound_ms": whole,
+            "pass_roofline_pct": 100.0 * whole / ms["kernels"],
+            "plain_ms_per_step": ms["plain"],
+            "cudnn_ms_per_step": ms["cudnn"], "max_rel_err": err}
+        for k in batch_norm.KERNELS:
+            rows.append((k if cell == "city" else f"{k}@{cell}",
+                         max(err["exact"][o] for o in BN_OUTPUTS[k]),
+                         per_kernel[k], None, (bound[k], "bytes"), None))
+    torch.cuda.empty_cache()
+    return {"bn": out}, rows
+
+
 def host_self_ms(events, top=10):
     """The `top` host ops of a Chrome trace by self time (an op's span less
     its child ops' on the same thread), in ms summed over the trace."""
@@ -2257,9 +2577,10 @@ def profile_slice(variables, dev, smi, workdir):
     check(len(losses) == PROF_ITRS and all(
         math.isfinite(x) for aux in losses for x in aux.values()),
         f"profile phase: losses {losses}")
-    check(launches == {k: PROF_ITRS for k in STAGE1_KERNELS},
-          f"profile phase launches {launches}, want each of "
-          f"{STAGE1_KERNELS} once per step")
+    want = {**{k: PROF_ITRS for k in STAGE1_KERNELS},
+            **bn_launches(model, PROF_ITRS)}
+    check(launches == want, f"profile phase launches {launches}, want "
+          f"{want} (K1-K4 and each BN kernel once a step, BN)")
 
     path = trainer.trace_file
     check(os.path.basename(path) == "rank0.round01.pt.trace.json"
@@ -2280,7 +2601,8 @@ def profile_slice(variables, dev, smi, workdir):
     check(kernels, "profile phase: the trace holds no device kernel (the "
           "CUDA activity was not recorded)")
     busy, window = busy_window(device)
-    # every kernel that K1-K4 launch, once a step
+    # every kernel that K1-K4 launch, once a step, and the BN kernels,
+    # once a BN and step
     spans = {}
     for counter, n in launches.items():
         for g in COUNTER_KERNELS[counter]:
@@ -2298,7 +2620,7 @@ def profile_slice(variables, dev, smi, workdir):
         "kernel_spans_per_step": len(kernels) / PROF_ITRS,
         "device_busy_ms_per_step": busy / PROF_ITRS / 1e3,
         "window_ms_per_step": window / PROF_ITRS / 1e3,
-        "idle_share": 1.0 - busy / window, "loss_kernel_spans": spans,
+        "idle_share": 1.0 - busy / window, "counted_kernel_spans": spans,
         "top_host_self_ms": host_self_ms(events),
         "losses": losses, "launches": launches}}
     return line, launches
@@ -2686,9 +3008,11 @@ def al_rounds_slice(variables, dev, smi, workdir):
         rounds.ALTrainer.validate = real["validate"]
         selectors.RegionSelector.select_next_batch = real["select"]
     steps = 2 * AL_ITRS
-    check(round_launches == {k: steps for k in STAGE1_KERNELS},
-          f"al rounds launches {round_launches}, want each of "
-          f"{STAGE1_KERNELS} once per stage-1 step ({steps}) and no other")
+    want = {**{k: steps for k in STAGE1_KERNELS},
+            **bn_launches(cfg.model, steps)}
+    check(round_launches == want, f"al rounds launches {round_launches}, "
+          f"want {want} (K1-K4 once per stage-1 step, {steps}, each BN "
+          "kernel once a BN and step, and no other)")
     check(checked == [True], "a checkpoint loaded back differs from the "
           "state that was saved")
     check(len(losses) == 6 and all(math.isfinite(v) for aux in losses
@@ -2800,7 +3124,9 @@ def al_rounds_slice(variables, dev, smi, workdir):
     _sync(dev)
     s2_s = time.perf_counter() - t0
     s2_launches = dict(_build.LAUNCHES)
-    check(s2_launches == {}, f"stage 2 launched kernels {s2_launches}")
+    want = bn_launches(s2cfg.model, s2cfg.finetune_itrs)
+    check(s2_launches == want, f"stage 2 launched kernels {s2_launches}, "
+          f"want {want} (each BN kernel once a BN and step)")
     check(len(s2losses) == 3 and all(math.isfinite(a["train_loss"])
                                      for a in s2losses),
           f"bad stage-2 losses {s2losses}")
@@ -3058,9 +3384,11 @@ def round_parity_slice(dev, smi, workdir):
     round_launches = dict(_build.LAUNCHES)
     card_s = time.perf_counter() - t0
     steps = RP_ROUNDS * fx["steps"]
-    check(round_launches == {k: steps for k in STAGE1_KERNELS},
-          f"round parity: launches {round_launches}, want each of "
-          f"{STAGE1_KERNELS} once per stage-1 step ({steps}) and no other")
+    want = {**{k: steps for k in STAGE1_KERNELS},
+            **bn_launches(rp_model(), steps)}
+    check(round_launches == want, f"round parity: launches "
+          f"{round_launches}, want {want} (K1-K4 once per stage-1 step, "
+          f"{steps}, each BN kernel once a BN and step, and no other)")
     t1 = time.perf_counter()
     cpu = rp_rounds(fx, variables, os.path.join(workdir, "cpu"), "cpu")
     cpu_s = time.perf_counter() - t1
@@ -3827,11 +4155,15 @@ def bf16_parity_slice(dev, smi):
         _sync(dev)
         card_s = time.perf_counter() - t1
         got = dict(_build.LAUNCHES)
+        # the BN kernels: the no-grad train-mode forward, each step's and
+        # stage 2's forward, and the steps' backwards
+        steps = BF16_STEPS + (1 if s2 is not None else 0)
         want = {**{k: BF16_STEPS for k in STAGE1_KERNELS},
-                "seg_max_fwd": fx["batch"]}
+                "seg_max_fwd": fx["batch"],
+                **bn_launches(bf16_model(name), 1 + steps, steps)}
         check(got == want, f"bf16 parity {name}: launches {got}, want "
               f"{want} (K1-K4 once a step, K5 once a pseudo-labelled "
-              "image)")
+              "image, each BN kernel once a BN and train-mode pass)")
         check(set(runs["card"]) == bf16_output_keys(ref),
               f"bf16 parity {name}: the card's outputs are not the "
               "reference's")
@@ -3905,10 +4237,12 @@ def bf16_world2_rank(name, device, cpu_autocast=False):
         aux = step(batch)
         _sync(dev)
         launches = dict(_build.LAUNCHES)
+    want = {**{k: 1 for k in STAGE1_KERNELS}, **bn_launches(model, 1)}
     grads = convert.state_dict_to_variables(
         {n: p.grad for n, p in model.named_parameters()})
     return {"loss0": np.array([float(aux[k]) for k in BF16_PARTS]),
-            **bf16_grad_outputs(name, grads), "launches": launches}
+            **bf16_grad_outputs(name, grads), "launches": launches,
+            "want": want}
 
 
 def bf16_world2_slice(dev, smi, card_world1=None, cpu_autocast=False):
@@ -3934,9 +4268,10 @@ def bf16_world2_slice(dev, smi, card_world1=None, cpu_autocast=False):
                            str(dev), cpu_autocast, timeout=600)
         rank_s = time.perf_counter() - t1
         for r, res in enumerate(ranks):
-            check(res["launches"] == {k: 1 for k in STAGE1_KERNELS},
+            check(res["launches"] == res["want"],
                   f"bf16 world 2 {name}: rank {r} launched "
-                  f"{res['launches']}, want K1-K4 once")
+                  f"{res['launches']}, want {res['want']} (K1-K4 once, "
+                  "each BN kernel once a BN)")
             launches += Counter(res["launches"])
         got = ranks[0]
         if not np.array_equal(got["grad0"], ranks[1]["grad0"]):
@@ -4196,9 +4531,13 @@ def cli_recipe_slice(variables, dev, smi, workdir):
         dev, commands)
 
     steps = CLI_ROUNDS * CLI_ITRS
-    check(launches["train_al"] == {k: steps for k in STAGE1_KERNELS},
-          f"train_al launched {launches['train_al']}, want each of "
-          f"{STAGE1_KERNELS} once per stage-1 step ({steps}) and no other")
+    recipe_model = "deeplabv3pluswn_resnet50deepstem"
+    want = {**{k: steps for k in STAGE1_KERNELS},
+            **bn_launches(recipe_model, steps)}
+    check(launches["train_al"] == want, f"train_al launched "
+          f"{launches['train_al']}, want {want} (K1-K4 once per stage-1 "
+          f"step, {steps}, each BN kernel once a BN and step, and no "
+          "other)")
     check(sorted(results["train_al"]) == list(range(1, CLI_ROUNDS + 1)) and
           all(math.isfinite(m) for m in results["train_al"].values()),
           f"bad train_al mIoU {results['train_al']}")
@@ -4226,8 +4565,10 @@ def cli_recipe_slice(variables, dev, smi, workdir):
         check(launches[f"eval_al_{r:02d}"] == {"seg_max_fwd": len(labelled)},
               f"eval_al round {r} launched {launches[f'eval_al_{r:02d}']}, "
               f"want seg_max_fwd once per labelled image ({len(labelled)})")
-        check(launches[f"train_stage2_{r:02d}"] == {},
-              f"stage 2 launched {launches[f'train_stage2_{r:02d}']}")
+        want = bn_launches(recipe_model, CLI_ITRS)
+        check(launches[f"train_stage2_{r:02d}"] == want,
+              f"stage 2 launched {launches[f'train_stage2_{r:02d}']}, want "
+              f"{want} (each BN kernel once a BN and step)")
         s2_miou = results[f"train_stage2_{r:02d}"]
         check(math.isfinite(results[f"eval_al_{r:02d}"]) and
               math.isfinite(s2_miou) and os.path.exists(os.path.join(
@@ -4415,7 +4756,8 @@ def loader_arms_slice(variables, dev, smi, workdir):
     workers = min(8, os.cpu_count() or 1)
     out = {}
     for (name, _, argv), rec in zip(commands, trains):
-        want = arms[name][1]
+        want = {**arms[name][1], **bn_launches(
+            "deeplabv3pluswn_resnet50deepstem", LA_ITRS)}
         check(launches[name] == want,
               f"loader arm {name}: launches {launches[name]}, want {want}")
         finite = _finite_steps(rec["losses"], rec["pads"],
@@ -4496,7 +4838,8 @@ def loader_arms_slice(variables, dev, smi, workdir):
                     for i, n in enumerate(MSEG_LEVELS))) for b in fed]
     del fed
     launches["mseg"] = dict(_build.LAUNCHES)
-    want = {"seg_max_fwd": len(MSEG_LEVELS) * B * LA_ITRS}
+    want = {"seg_max_fwd": len(MSEG_LEVELS) * B * LA_ITRS,
+            **bn_launches(model, LA_ITRS)}
     check(launches["mseg"] == want,
           f"loader arm mseg: launches {launches['mseg']}, want {want}")
     check(_finite_steps(losses, pads, True),
@@ -4621,9 +4964,12 @@ def voc_recipe_slice(dev, smi, workdir):
         dev, commands)
 
     steps = VOC_ROUNDS * VOC_ITRS
-    check(launches["train_al"] == {k: steps for k in STAGE1_KERNELS},
-          f"VOC train_al launched {launches['train_al']}, want each of "
-          f"{STAGE1_KERNELS} once per stage-1 step ({steps}) and no other")
+    want = {**{k: steps for k in STAGE1_KERNELS},
+            **bn_launches(model, steps)}
+    check(launches["train_al"] == want, f"VOC train_al launched "
+          f"{launches['train_al']}, want {want} (K1-K4 once per stage-1 "
+          f"step, {steps}, each BN kernel once a BN and step, and no "
+          "other)")
     check(sorted(results["train_al"]) == list(range(1, VOC_ROUNDS + 1)) and
           all(math.isfinite(m) for m in results["train_al"].values()),
           f"bad VOC train_al mIoU {results['train_al']}")
@@ -4655,8 +5001,10 @@ def voc_recipe_slice(dev, smi, workdir):
               f"VOC eval_al round {r} launched "
               f"{launches[f'eval_al_{r:02d}']}, want seg_max_fwd once per "
               f"labelled image ({len(labelled)})")
-        check(launches[f"train_stage2_{r:02d}"] == {},
-              f"VOC stage 2 launched {launches[f'train_stage2_{r:02d}']}")
+        want = bn_launches(model, VOC_S2_ITRS)
+        check(launches[f"train_stage2_{r:02d}"] == want,
+              f"VOC stage 2 launched {launches[f'train_stage2_{r:02d}']}, "
+              f"want {want} (each BN kernel once a BN and step)")
         s2_miou = results[f"train_stage2_{r:02d}"]
         check(math.isfinite(results[f"eval_al_{r:02d}"]) and
               math.isfinite(s2_miou) and os.path.exists(os.path.join(
@@ -5231,14 +5579,15 @@ def evals_slice(variables, dev, smi, workdir):
     with _Timed(dev, log, (Evaluator, "run")):
         twall, tlaunches, tresults, trains, _, tpeak = run_commands(
             dev, tcommands)
+    want = bn_launches("deeplabv3pluswn_resnet50deepstem", EV_ITRS)
     for (name, _, _), rec in zip(tcommands, trains):
-        check(tlaunches[name] == {} and len(rec["losses"]) == EV_ITRS and
+        check(tlaunches[name] == want and len(rec["losses"]) == EV_ITRS and
               all(map(math.isfinite, rec["losses"])) and
               len(rec["validations"]) == 1 and
               all(map(math.isfinite, tresults[name].values())),
-              f"evals: {name} launched {tlaunches[name]}, losses "
-              f"{rec['losses']}, validations {rec['validations']}, mIoU "
-              f"{tresults[name]}")
+              f"evals: {name} launched {tlaunches[name]} (want {want}), "
+              f"losses {rec['losses']}, validations {rec['validations']}, "
+              f"mIoU {tresults[name]}")
         out[name] = {"command_s": twall[name], "train_img_per_s":
                      rec["img_per_s"], "losses": rec["losses"],
                      "eval_miou": tresults[name][1]}
@@ -5569,8 +5918,11 @@ def dp_slice(variables, dev, smi, workdir, backend1="nccl",
                     for k, v in refs[0]["state"].items())
     repeat_differing = sum(not torch.equal(refs[1]["state"][k], v)
                            for k, v in refs[0]["state"].items())
+    dp_model = "deeplabv3pluswn_resnet50deepstem"  # _dp_model's
     for r in (w1, *w1_sgd, *refs):
-        check(r["launches"] == {k: len(r["losses"]) for k in STAGE1_KERNELS},
+        steps = len(r["losses"])
+        check(r["launches"] == {**{k: steps for k in STAGE1_KERNELS},
+                                **bn_launches(dp_model, steps)},
               f"world 1 launches {r['launches']}")
 
     # world 2: two processes on the one card, step 0 and the SGD
@@ -5603,9 +5955,10 @@ def dp_slice(variables, dev, smi, workdir, backend1="nccl",
               "dryrun's bounds")
         for r in range(2):
             res = w2[r][i]
-            check(res["launches"] == {k: DP_SGD_STEPS
-                                      for k in STAGE1_KERNELS},
-                  f"world 2 rank {r} launches {res['launches']}")
+            check(res["launches"] == {
+                **{k: DP_SGD_STEPS for k in STAGE1_KERNELS},
+                **bn_launches(dp_model, DP_SGD_STEPS)},
+                f"world 2 rank {r} launches {res['launches']}")
             check(res["losses"] == mine["losses"],
                   f"world 2 rank {r} logged other losses")
     f32 = agree["float32"]
@@ -5653,13 +6006,16 @@ def dp_slice(variables, dev, smi, workdir, backend1="nccl",
     n_label = rnd[0]["n_label"]
     for r, res in enumerate(rnd):
         check(res["regions"] == got, f"rank {r} selected other regions")
-        check(res["train_launches"] == {k: DP_ITRS for k in STAGE1_KERNELS},
-              f"round rank {r} training launches {res['train_launches']}")
+        check(res["train_launches"] == {
+            **{k: DP_ITRS for k in STAGE1_KERNELS},
+            **bn_launches(dp_model, DP_ITRS)},
+            f"round rank {r} training launches {res['train_launches']}")
         want_k5 = {"seg_max_fwd": n_label} if r == 0 else {}
         check(res["plbl_launches"] == want_k5,
               f"round rank {r} plbl launches {res['plbl_launches']}")
-        check(res["stage2_launches"] == {},
-              f"round rank {r} stage-2 launches {res['stage2_launches']}")
+        check(res["stage2_launches"] == bn_launches(
+            dp_model, s2cfg.finetune_itrs),
+            f"round rank {r} stage-2 launches {res['stage2_launches']}")
         check(len(res["validations"]) == 2 and all(
             math.isfinite(v) for v in res["losses"] + res["stage2_losses"]
             + res["validations"]), f"round rank {r}: bad losses or "
@@ -5880,8 +6236,9 @@ def dp_criteria_slice(variables, dev, smi, workdir, tree, backend="gloo"):
     out, launches = {}, Counter()
     for case, method, _, k5 in cases:
         one, mine = w1[case], [w2[r][case] for r in range(2)]
-        want1 = {"seg_max_fwd": k5 * B} if k5 else {}
-        want2 = {"seg_max_fwd": k5 * B // 2} if k5 else {}
+        bn = bn_launches("deeplabv3pluswn_resnet50deepstem", 1)
+        want1 = {**({"seg_max_fwd": k5 * B} if k5 else {}), **bn}
+        want2 = {**({"seg_max_fwd": k5 * B // 2} if k5 else {}), **bn}
         check(one["launches"] == want1, f"dp_criteria {case}: world 1 "
               f"launches {one['launches']}, want {want1}")
         for r, res in enumerate(mine):
@@ -6012,8 +6369,7 @@ def main():
     print(f"card: {card}", flush=True)
 
     t0 = time.perf_counter()
-    reports = _build.build_all(["pixel_loss", "segment", "segment_max",
-                                "prereduce"])
+    reports = _build.build_all(_build.SOURCES)
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.1f} s (parallel nvcc, sm_90a)", flush=True)
     for name, log in reports.items():
@@ -6063,15 +6419,16 @@ def main():
     launches = dict(_build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = WARMUP + TIMED
-    check(set(launches) == set(STAGE1_KERNELS),
-          f"stage-1 launches {launches}, want {STAGE1_KERNELS}")
-    for name in STAGE1_KERNELS:
-        check(launches[name] == steps,
-              f"{name} launched {launches[name]} times in {steps} steps")
+    want = {**{k: steps for k in STAGE1_KERNELS},
+            **bn_launches(model, steps)}
+    check(launches == want, f"stage-1 launches {launches}, want {want} "
+          f"(K1-K4 and each BN kernel once a BN and step, {steps} steps)")
     check(all(math.isfinite(v) for v in losses.values()),
           f"non-finite loss {losses}")
 
     stage1_launches = launches
+    bn_line, bn_rows = bn_slice(dev)
+    print(json.dumps(bn_line, separators=(",", ":")), flush=True)
 
     # past the K3 guard: nseg 4096, from the seeded weights again. Every
     # timed run comes before the first torch.profiler pass, whose tracing
@@ -6092,9 +6449,12 @@ def main():
     large_launches = dict(_build.LAUNCHES)
     large_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     large_steps = WARMUP_LARGE + TIMED_LARGE
-    check(large_launches == {k: large_steps for k in STAGE1_LARGE_KERNELS},
-          f"nseg {NSEG_LARGE} launches {large_launches}, want each of "
-          f"{STAGE1_LARGE_KERNELS} once per step and no ssm_fwd (K3)")
+    want = {**{k: large_steps for k in STAGE1_LARGE_KERNELS},
+            **bn_launches(model, large_steps)}
+    check(large_launches == want,
+          f"nseg {NSEG_LARGE} launches {large_launches}, want {want}: "
+          f"{STAGE1_LARGE_KERNELS} and each BN kernel once a BN and step, "
+          "and no ssm_fwd (K3)")
     check(all(math.isfinite(v) for v in large_losses.values()),
           f"non-finite loss at nseg {NSEG_LARGE}: {large_losses}")
     del lstep
@@ -6200,7 +6560,7 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         prof_line, prof_launches = profile_slice(variables, dev, smi, tmp)
-    rows += large_rows + voc_rows + crit_rows + evals_rows
+    rows += large_rows + voc_rows + crit_rows + evals_rows + bn_rows
     # each kernel's launches on each main path that runs it, and their sum
     by_path = {f"stage1_nseg{NSEG}": stage1_launches,
                f"stage1_nseg{NSEG_LARGE}": large_launches,

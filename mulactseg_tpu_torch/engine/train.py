@@ -652,6 +652,9 @@ class _TrainStep:
     once, not at the next garbage collection."""
 
     def __init__(self, model, cfg, dev, generator, optimizer):
+        if dev.type == "cuda":
+            # one nvcc for each kernel library not built yet, all at once
+            _build.build_all(_build.SOURCES)
         # an unknown method raises here on every rank, before any
         # collective
         self.criterion = criterion = get_criterion(cfg)

@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mulactseg_tpu_torch.ops import batch_norm
 from mulactseg_tpu_torch.parallel import mesh
 
 
@@ -67,25 +68,13 @@ class FastBatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training and not self.frozen:
-            # global-batch statistics under data parallelism: one (2, C)
-            # all-reduce of [sum x, sum x^2] (parallel/mesh.py)
-            n = x.numel() // x.shape[1] * mesh.world()
-            xf = x.float()
-            sums = mesh.all_reduce_sum(torch.stack(
-                [xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
-            m = sums[0] / n
-            v = torch.clamp(sums[1] / n - m * m, min=0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(1.0 - self.momentum).add_(
-                    self.momentum * m.detach())
-                self.running_var.mul_(1.0 - self.momentum).add_(
-                    self.momentum * v.detach())
-        else:
-            m, v = self.running_mean, self.running_var
-        a = self.weight * torch.rsqrt(v + self.eps)
-        b = self.bias - m * a
-        dt = x.dtype
-        return x * a.to(dt)[None, :, None, None] + b.to(dt)[None, :, None, None]
+            # global-batch statistics under data parallelism; on the card
+            # the kernels of csrc/batch_norm.cu (ops/batch_norm.py)
+            return batch_norm.batch_norm_train(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, self.momentum, self.eps)
+        return batch_norm.affine(x, self.running_mean, self.running_var,
+                                 self.weight, self.bias, self.eps)
 
 
 @contextlib.contextmanager

@@ -36,6 +36,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# the CUDA kernel libraries, csrc/*.cu: what a train step on the card
+# builds at once (build_all) before its first launch
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 
 # Compile-time constants of a source that Python needs as well, passed as
 # -D<name>=<value> and set by the source's wrapper module (segment.py sets

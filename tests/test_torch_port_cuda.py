@@ -71,16 +71,26 @@ crop size eager with the graph kept; a replaced optimizer state captured
 anew; a criterion that cannot be captured (lscale) eager from then on.
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
+
+import test_torch_port_batch_norm as bn_cpu  # beside this file
 
 from mulactseg_tpu_torch.data.synthetic import irregular_superpixels
 from mulactseg_tpu_torch.losses.fused import (
     lossdecomp_fused,
     pixel_target_bits,
 )
-from mulactseg_tpu_torch.ops import _build, pixel_loss, segment, segment_max
+from mulactseg_tpu_torch.ops import (
+    _build,
+    batch_norm,
+    pixel_loss,
+    segment,
+    segment_max,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -92,6 +102,28 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def _n_bn(model):
+    from mulactseg_tpu_torch.models.layers import FastBatchNorm
+
+    return sum(isinstance(m, FastBatchNorm) for m in model.modules())
+
+
+def _bn_counts(fwd, bwd=None):
+    """Each forward BN kernel launched `fwd` times, each backward one `bwd`
+    (default `fwd`): a train-mode forward and backward of a model with n
+    FastBatchNorms launches each of the six n times."""
+    bwd = fwd if bwd is None else bwd
+    return {k: fwd if i < 3 else bwd
+            for i, k in enumerate(batch_norm.KERNELS)}
+
+
+def _split_bn(launches):
+    """(the launches but the BN kernels', the BN kernels')."""
+    launches = dict(launches)
+    bn = {k: launches.pop(k) for k in batch_norm.KERNELS if k in launches}
+    return launches, bn
 
 
 def _bits(rng, B, C, HW):
@@ -951,7 +983,8 @@ def test_needs_feat_step_on_card_matches_cpu(dev, method, k5, monkeypatch):
             m, cfg, device=d)(batch).items()})
         if d != "cpu":
             torch.cuda.synchronize()
-            assert dict(_build.LAUNCHES) == {"seg_max_fwd": k5 * B}
+            assert dict(_build.LAUNCHES) == {"seg_max_fwd": k5 * B,
+                                             **_bn_counts(1)}
     for k, v in auxes[0].items():
         assert v > 0 and auxes[1][k] == pytest.approx(v, rel=1e-5), k
 
@@ -1179,8 +1212,8 @@ def test_data_parallel_two_ranks_on_one_card(dev):
             np.testing.assert_allclose(res["bn"][k], one["bn"][k],
                                        rtol=1e-5, atol=1e-6, err_msg=k)
         assert res["step"]["launches"] == {
-            k: 1 for k in ("pixel_ce_fwd", "pixel_ce_bwd", "ssm_fwd",
-                           "ssm_bwd")}
+            **{k: 1 for k in ("pixel_ce_fwd", "pixel_ce_bwd", "ssm_fwd",
+                              "ssm_bwd")}, **_bn_counts(_n_bn(model))}
         got = res["step"]["losses"][0]["train_loss"]
         want = one["step"]["losses"][0]["train_loss"]
         assert abs(got - want) <= 1e-3 * abs(want)
@@ -1219,12 +1252,14 @@ def test_criteria_data_parallel_two_ranks_on_one_card(dev):
     jobs = [("steps", "criteria_steps", (spec, steps, card))]
     two = mesh.spawn(ranks.run_all, 2, "gloo", card, jobs, timeout=180)
     one = ranks.run_all(jobs)["steps"]
+    bn = _bn_counts(_n_bn(ranks.port_twin(True)))
     for m, (_, k5) in cases.items():
         want = one[m]
-        assert want["launches"] == {"seg_max_fwd": k5 * ranks.B}, m
+        assert want["launches"] == {"seg_max_fwd": k5 * ranks.B, **bn}, m
         for res in two:
             got = res["steps"][m]
-            assert got["launches"] == {"seg_max_fwd": k5 * ranks.B // 2}, m
+            assert got["launches"] == {"seg_max_fwd": k5 * ranks.B // 2,
+                                       **bn}, m
             assert got["grad_sq"] == two[0]["steps"][m]["grad_sq"]
             for k, w in want["losses"][0].items():
                 assert abs(got["losses"][0][k] - w) <= 1e-3 * abs(w), (m, k)
@@ -1249,9 +1284,10 @@ def test_bf16_path_holds_the_jax_reference(dev, name):
     too, by the share of values that differ bitwise), each exact output
     equals the file's outside the pixels or regions that flip under the
     JAX package's own perturbations; K1-K4 once a step, K5 once a
-    pseudo-labelled image; for VOC (21 classes, 97x97) every kernel at C
-    at run time without the 16-byte path, and stage 2's step 0 on the
-    file's pseudo-labels."""
+    pseudo-labelled image, the BN kernels once a BN in each train-mode
+    forward (the no-grad one, each step's, stage 2's) and backward; for
+    VOC (21 classes, 97x97) every kernel at C at run time without the
+    16-byte path, and stage 2's step 0 on the file's pseudo-labels."""
     import chip_smoke as cs
 
     ref = cs.bf16_reference_of(name)
@@ -1264,9 +1300,13 @@ def test_bf16_path_holds_the_jax_reference(dev, name):
         out = cs.bf16_port_outputs(name, variables, inputs, dev,
                                    s2_labels=s2)
     torch.cuda.synchronize()
-    assert dict(_build.LAUNCHES) == {
+    rest, bn = _split_bn(_build.LAUNCHES)
+    assert rest == {
         **{k: cs.BF16_STEPS for k in cs.STAGE1_KERNELS},
         "seg_max_fwd": cs.BF16_FIXTURES[name]["batch"]}
+    n = _n_bn(cs.bf16_model(name))
+    steps = cs.BF16_STEPS + (1 if cs.bf16_recipe(name)["stage2"] else 0)
+    assert bn == _bn_counts(n * (1 + steps), n * steps)
     assert set(out) == cs.bf16_output_keys(ref)
     if name == "voc":
         assert seen == {"pixel_ce": {(21, 0, False)}, "ssm": {(21, 0)},
@@ -1283,12 +1323,13 @@ def test_bf16_world2_holds_the_jax_reference(dev):
     bf16_reference_voc.npz): the summed step-0 gradient's sample and
     norms per leaf within the VOC fixture's grad0 and grad0_norm
     tolerances, the loss and its parts within loss0's, K1-K4 once on
-    each rank."""
+    each rank and each BN kernel once a BN on each rank."""
     import chip_smoke as cs
 
     card = torch.device("cuda", torch.cuda.current_device())
     line, launches = cs.bf16_world2_slice(card, "card")
-    assert launches == {k: 2 for k in cs.STAGE1_KERNELS}
+    assert launches == {**{k: 2 for k in cs.STAGE1_KERNELS},
+                        **_bn_counts(2 * _n_bn(cs.bf16_model("voc")))}
     assert set(line["bf16_world2"]["fixtures"]) == {"voc"}
 
 
@@ -1380,15 +1421,24 @@ def test_graph_step_matches_the_eager_step(dev, monkeypatch):
 
 def test_graph_step_launch_counts_and_spans(dev):
     """ops/_build.LAUNCHES counts what reaches the card: the eager step
-    and each replay K1-K4 once, the capture nothing. A batch of another
+    and each replay K1-K4 once and each of the six BN kernels once a BN
+    (64 in the recipe's network), the capture nothing. A batch of another
     crop size runs eagerly and keeps the graph; replacing the optimizer's
-    state (load_state_dict) drops it, and the next call captures anew."""
+    state (load_state_dict) drops it, and the next call captures anew. A
+    profiled replay runs each BN kernel 64 times and no other batch-norm
+    kernel (no aten batch_norm, no cuDNN bn_*)."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     import chip_smoke as cs
     from mulactseg_tpu_torch.utils import spans
 
     cfg, variables, batches = _graph_fixture(dev, seed=1)
     model, step = _graph_step(dev, cfg, variables)
-    once = {k: 1 for k in cs.STAGE1_KERNELS}
+    assert _n_bn(model) == 64
+    once = {**{k: 1 for k in cs.STAGE1_KERNELS}, **_bn_counts(64)}
     want = [{"train.eager": 1, "train.capture": 0, "train.replay": 0},
             {"train.eager": 0, "train.capture": 1, "train.replay": 1},
             {"train.eager": 0, "train.capture": 0, "train.replay": 1}]
@@ -1419,6 +1469,16 @@ def test_graph_step_launch_counts_and_spans(dev):
     assert _span_counts(before) == want[1]
     assert torch.isfinite(loss).item()
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(batches[0])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    ours = [re.match(r"(?:void )?(bn_\w+?)_kernel\b", n) for n in names]
+    assert Counter(m.group(1) for m in ours if m) == _bn_counts(64)
+    assert not [n for n, m in zip(names, ours) if not m and (
+        "batch_norm" in n or "bn_" in n)]
+
 
 def test_graph_capture_failure_leaves_the_step_eager(dev, caplog):
     """A criterion whose step cannot be captured (lscale builds a constant
@@ -1447,9 +1507,10 @@ def test_segformer_step_replays(dev):
     """SegFormer-B5 (models/segformer.py) at full width through the graphed
     step, on the bf16 fixture's batches (96 x 96, nseg 24, uint8 images):
     step 1 eager, step 2 captured and replayed, the rest replayed; each
-    step launches K1-K4 once and the attention once a block (52, on a
+    step launches K1-K4 once, the attention once a block (52, on a
     flash, cuDNN or efficient kernel: models/segformer.attention refuses
-    the math backend), the capture adds nothing; every loss finite and
+    the math backend) and each BN kernel once (the decoder's one BN), the
+    capture adds nothing; every loss finite and
     its own, and nearly every leaf moves (a bias in front of a BN may
     keep a gradient of zero)."""
     import dataclasses
@@ -1472,7 +1533,8 @@ def test_segformer_step_replays(dev):
     step = make_train_step(model, cfg, device=dev,
                            generator=torch.Generator(dev).manual_seed(7))
     start = [p.detach().clone() for p in model.parameters()]
-    once = dict({k: 1 for k in cs.STAGE1_KERNELS}, sdpa=52)
+    once = dict({k: 1 for k in cs.STAGE1_KERNELS}, sdpa=52,
+                **_bn_counts(1))
     want = [{"train.eager": 1, "train.capture": 0, "train.replay": 0},
             {"train.eager": 0, "train.capture": 1, "train.replay": 1}] + \
         [{"train.eager": 0, "train.capture": 0, "train.replay": 1}] * (
@@ -1490,3 +1552,87 @@ def test_segformer_step_replays(dev):
     assert np.isfinite(vals).all() and len(set(vals)) == GRAPH_STEPS
     moved = [not torch.equal(p, s) for p, s in zip(model.parameters(), start)]
     assert sum(moved) >= 0.95 * len(moved)
+
+
+# -- FastBatchNorm's training pass (ops/batch_norm.py, csrc/batch_norm.cu) -
+BN_SHAPES = [(s, "city") for s in bn_cpu.CITY_SHAPES] + [
+    (s, "voc") for s in bn_cpu.VOC_SHAPES]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cell", BN_SHAPES + [
+    ((4, 256, 33, 33), "offset 1"), ((2, 64, 129, 129), "offset 3"),
+    ((4, 768, 96, 96), "channels-last"), ((3, 100, 9, 11), "channels-last")])
+def test_batch_norm_kernels_match_plain(dev, shape, cell, dtype):
+    """The six BN kernels (one launch each) against the plain version on
+    the card at every distinct BN shape of city_stage1 and voc_stage1
+    (VOC's 257^2, 129^2, 65^2 and 33^2 maps put plane starts off 16-byte
+    boundaries), on x one and three elements into its storage, and
+    channels-last (SegFormer's decoder width; and C = 100, not a multiple
+    of a 16-byte pack), where y and dx stay channels-last: y, the
+    running statistics and dx, dw, db of one backward, each relative to
+    its operands' magnitude (chip_smoke.rel_err; the inputs
+    chip_smoke.bn_inputs). float32: within chip_smoke.BN_F32_TOL of the
+    plain version's and of the exact float64 function
+    (chip_smoke.bn_exact). bf16: within chip_smoke.BN_BF16_EXACT of the
+    exact function of the same bf16 inputs and within
+    chip_smoke.BN_BF16_PLAIN of the plain version (the tolerances' reasons
+    are stated there). Every output finite, the constant channel's (v = 0,
+    where the clamp passes the variance's gradient) included."""
+    import chip_smoke as cs
+
+    dt = getattr(torch, dtype)
+    offset = int(cell.split()[1]) if cell.startswith("offset") else 0
+    rows = cell == "channels-last"
+    args = cs.bn_inputs(dev, shape, dt, sum(shape) + offset, offset, rows)
+    _build.reset_launches()
+    got = cs.bn_run(batch_norm.batch_norm_train, *args)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == _bn_counts(1)
+    if rows:
+        assert all(got[k].is_contiguous(memory_format=torch.channels_last)
+                   for k in ("y", "dx"))
+    plain = cs.bn_run(batch_norm.batch_norm_plain, *args)
+    exact, mag = cs.bn_exact(*args)
+    for k, g in got.items():
+        assert g.dtype == plain[k].dtype and bool(torch.isfinite(g).all()), k
+        if dt == torch.float32:
+            assert cs.rel_err(g, plain[k], mag[k]) <= cs.BN_F32_TOL, k
+            assert cs.rel_err(g, exact[k], mag[k]) <= cs.BN_F32_TOL, k
+            continue
+        assert cs.rel_err(g, exact[k], mag[k]) <= cs.BN_BF16_EXACT[k], k
+        if k in cs.BN_BF16_PLAIN:
+            assert cs.rel_err(g, plain[k], mag[k]) <= cs.BN_BF16_PLAIN[k], k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batch_norm_graph_replay_gives_the_eager_values(dev, dtype):
+    """One BN's forward and backward captured in a CUDA graph and replayed
+    from the same running statistics: the eager pass's output, gradients
+    and statistics bitwise (the partial sums are reduced in a fixed
+    order, no atomics)."""
+    import chip_smoke as cs
+
+    args = cs.bn_inputs(dev, (4, 128, 97, 97), getattr(torch, dtype), 7)
+    x, dy, w, b, rm, rv = args
+    eager = cs.bn_run(batch_norm.batch_norm_train, *args)
+    xs = x.detach().clone().requires_grad_(True)
+    ws, bs = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    rms, rvs = rm.clone(), rv.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        y = batch_norm.batch_norm_train(xs, ws, bs, rms, rvs, 0.1, 1e-5)
+        y.backward(dy)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    rms.copy_(rm)
+    rvs.copy_(rv)
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = {"y": y.detach(), "dx": xs.grad, "dw": ws.grad,
+                "db": bs.grad, "rm": rms, "rv": rvs}
+    for k, t in eager.items():
+        assert torch.equal(replayed[k], t), k
